@@ -21,9 +21,19 @@ non-zero without printing the final line:
 5. uci2m   — the uci2m_synth config in closed form at n = 2M
              (benchmarks/run_configs.py:uci2m): chunked statistics, 150
              reweight steps, predict on 100k points.
+6. kron    — K2 (kron_matvec_slab) and K3 (kron_matvec_fused) against their
+             plain version on the card, both grades, at the grid
+             configurations' lattices, one d=5 lattice and one ragged d=2
+             lattice; CUDA-event times of the kernel, the plain version and
+             the port's cyclic torch.matmul chain, beside the bound.
+7. grid    — the two grid configurations (GRID_CONFIGS) end to end through
+             ``GPKroneckerRegression``: float64 schur NLML against a recorded
+             float64 JAX run, float32 CG NLML against float32 schur, the
+             kernel launches during the CG NLML, and predict (mean on 10,000
+             points, variance on 512).
 
 Then the ``nvidia-smi`` name/power-limit line, one ``{"kernels": [...]}``
-line (launch counts from phases 4-5) and, last,
+line (K1 launches from phases 4-5, K2/K3 launches from phase 7) and, last,
 ``{"ok": true, "device": {...}}``.  This script imports no JAX.
 """
 
@@ -83,6 +93,11 @@ UCI2M_RMSE_MAX = 0.12
 # ~d + m terms once, so float32 stays near 24·6e-8 ≈ 1.4e-6 at m = 16;
 # float64 near 24·1.1e-16.
 KERNEL_TOL = {"float32": 1e-5, "float64": 1e-12}
+
+# H100 SXM peaks (NVIDIA's data sheet, dense): memory rate, and the
+# operation rate of each grade: FP32 FMA outside the tensor cores, bf16.
+H100_BYTES_PER_S = 3.35e12
+H100_FLOPS = {"highest": 67e12, "default": 989e12}
 
 # (name, d, n, m, p): the shapes the main path hands K1.
 KERNEL_SHAPES = [
@@ -177,7 +192,11 @@ def phase_kernel(card: str) -> dict:
             if tag == "float32":
                 summary["max_abs_err"] = max(summary["max_abs_err"], abs_err)
                 if name == "kin40k_stats":
-                    summary.update(ms=ms, plain_ms=plain_ms)
+                    # 2·n·p·d·m FP32 operations against B, S read once and Φ written once.
+                    t_ops = 2.0 * n * p * d * m / H100_FLOPS["highest"]
+                    t_bytes = 4.0 * (d * n * m + d * m * p + n * p) / H100_BYTES_PER_S
+                    summary.update(ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes) * 1e3,
+                                   bound_by="operations" if t_ops >= t_bytes else "bytes")
             del B, S, got, ref, scale, diff
             torch.cuda.empty_cache()
     return summary
@@ -338,6 +357,210 @@ def phase_uci2m(card: str) -> None:
     check(rmse <= UCI2M_RMSE_MAX, f"uci2m rmse {rmse} > {UCI2M_RMSE_MAX}")
 
 
+# ---------------------------------------------------------------------------
+# Grid configurations (GPKroneckerRegression) and kernels K2/K3.
+# ---------------------------------------------------------------------------
+
+# Both use float32 on the card.  Lengthscales and noise are set so that CG at
+# cg_tol = 1e-6 converges inside cg_iters (PERF.md §4 gives the choice).
+GRID_CONFIGS = {
+    # d = 5, 32 sorted uniform points on [0, 3] per dimension, y ~ N(0, 1)
+    # (the data of benchmarks/exp_r4_mixed16_e2e.py, M = 33,554,432).  The
+    # mixed refinement's inner matvec is kron_matvec_fast(..., "default"),
+    # slab-applicable: K2.  Its exact residual refresh is the matmul chain.
+    "grid32x5_mixed": dict(
+        sizes=(32,) * 5, lengthscales=(0.05,) * 5, noise_var=10.0,
+        model=dict(solver="cg", cg_precision="mixed", precond_rank=0, cg_tol=1e-6, cg_iters=250),
+        kernel="kron_matvec_slab",
+    ),
+    # 8 frames of a 512 x 512 field (M = 2,097,152): time points 0..7, pixel
+    # centres on [0, 1].  Every CG matvec and both deflation matvecs are
+    # "highest" on square factors with a 512-wide factor and M >= 2^21: K3
+    # (plan: mid group (0, 0), tail (512, 512)).
+    "grid8x512x512_exact": dict(
+        sizes=(8, 512, 512), lengthscales=(2.0, 0.05, 0.05), noise_var=10.0,
+        model=dict(solver="cg", cg_precision="exact", precond_rank=512, cg_tol=1e-6, cg_iters=250),
+        kernel="kron_matvec_fused",
+    ),
+}
+
+# float64 schur NLML of each configuration on the same (float32) data cast to
+# float64, from the JAX package on the CPU (jax 0.9.0):
+#     JAX_PLATFORMS=cpu python tools/grid_reference_jax.py
+JAX_GRID_NLML_F64 = {
+    "grid32x5_mixed": 72105230.56050768,
+    "grid8x512x512_exact": 4449636.9309229255,
+}
+# float64 on both sides: eigh of the factors and the M-term sums round in
+# different orders; the closed form agrees to ~1e-12 (tests/test_torch_gp_kron.py).
+GRID_NLML_F64_RTOL = 1e-9
+# float32 CG NLML against float32 schur NLML on the card.  float32 CG stops at
+# a relative residual of 20·eps32 = 2.4e-6 (its tolerance clamp), and on
+# κ(K + σ²I) ≈ 1.7e3 its true residual drifts further from the recursive one;
+# the JAX package's own float32 CG of grid8x512x512_exact lands 3.3e-5 from
+# the float64 NLML (tools/grid_reference_jax.py).
+GRID_CG_GAP_RTOL = 1e-4
+# float32 predictive mean against the float64 one: a float32 Schur solve on
+# κ(K + σ²I) up to ~1e3 loses ~κ·eps32 ≈ 1e-4 of the mean's scale.
+GRID_MEAN_RTOL = 1e-3
+
+
+def grid_data(name: str, sizes=None):
+    """Grid points (float32, one (m_d, 1) array per dimension) and responses
+    of a grid configuration, made from ``numpy.random.default_rng(0)``.
+    ``sizes`` shrinks the lattice (the CPU tests' version)."""
+    cfg = GRID_CONFIGS[name]
+    sizes = tuple(sizes or cfg["sizes"])
+    rng = np.random.default_rng(0)
+    if name == "grid32x5_mixed":
+        xg = [np.sort(rng.uniform(0, 3, m))[:, None].astype(np.float32) for m in sizes]
+    else:
+        xg = [np.arange(sizes[0], dtype=np.float32)[:, None]]
+        xg += [((np.arange(m, dtype=np.float32) + 0.5) / m)[:, None] for m in sizes[1:]]
+    # Drawn in chunks (the same stream as one draw) to keep host memory low.
+    M, chunk = int(np.prod(sizes)), 1 << 20
+    y = np.concatenate([rng.standard_normal(min(chunk, M - i)).astype(np.float32) for i in range(0, M, chunk)])
+    return xg, y
+
+
+def grid_test_points(xg, n: int, seed: int = 1):
+    """Scattered points inside the grid's box, float32."""
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.uniform(g.min(), g.max(), n) for g in xg], axis=1).astype(np.float32)
+
+
+def grid_model(name: str, xg, y, dtype, device, **overrides):
+    import gp_grief_tpu_torch as gpt
+
+    cfg = GRID_CONFIGS[name]
+    kw = dict(cfg["model"], noise_var=cfg["noise_var"], **overrides)
+    kerns = [gpt.make_kernel("rbf", lengthscale=ls) for ls in cfg["lengthscales"]]
+    return gpt.GPKroneckerRegression(xg, y, kerns, dtype=dtype, device=device, **kw)
+
+
+# (name, factor sizes, B): the shapes phase 6 holds K2/K3 to.
+KRON_SHAPES = [
+    ("kron_slab", "grid32x5", (32,) * 5, 1),
+    ("kron_slab", "d5_4x16x8x16x8", (4, 16, 8, 16, 8), 1),
+    ("kron_fused", "grid8x512x512", (8, 512, 512), 1),
+    ("kron_fused", "ragged_d2_96x128", (96, 128), 1),
+]
+# Relative norm error of a kernel against its plain version (same contraction
+# order, same rounding points): float32 summation order at "highest"; at
+# "default" also the rare bf16 rounding such a difference tips over.
+KRON_TOL = {"highest": 1e-5, "default": 2e-3}
+
+
+def kron_bound(sizes, B, precision):
+    """Least time for (⊗K_d)·V on an H100 SXM: every input read once, the
+    output written once, against 2·M·B·Σm_d operations at the grade's peak."""
+    M = int(np.prod(sizes))
+    nbytes = 4 * (2 * M * B + sum(m * m for m in sizes))
+    ops = 2.0 * M * B * sum(sizes)
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_FLOPS[precision]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_kron(card: str) -> dict:
+    import torch
+    from gp_grief_tpu_torch.ops.cuda import kron as tk
+    from gp_grief_tpu_torch.ops.kron_fast import kron_matvec_fast
+
+    summary = {}
+    for kname, label, sizes, B in KRON_SHAPES:
+        fn = tk.kron_matvec_slab if kname == "kron_slab" else tk.kron_matvec_fused
+        M = int(np.prod(sizes))
+        g = torch.Generator(device="cpu").manual_seed(0)
+        fs = [(torch.randn((m, m), generator=g) / m**0.5).cuda() for m in sizes]
+        # Several distinct vectors, cycled, so a small lattice is not timed
+        # from L2 (8x512x512 is 8.4 MB of a 50 MB L2): >= 128 MB in all.
+        nv = max(1, -(-(128 << 20) // (4 * M * B)))
+        vs = [torch.randn((M, B), generator=g).cuda() for _ in range(nv)]
+        for precision in ("highest", "default"):
+            fast = precision == "default"
+            kw = dict(precision=precision, **({"mid_dtype": torch.bfloat16} if fast and kname == "kron_slab" else {}))
+            with torch.no_grad():
+                got = fn(fs, vs[0], **kw)
+                torch.cuda.synchronize()
+                plain = tk.kron_chain_ref(fs, vs[0], fast=fast)
+                exact = tk.kron_chain_ref([f.double() for f in fs], vs[0].double())
+                rel = float(torch.linalg.norm((got - plain).double()) / torch.linalg.norm(plain.double()))
+                rel_exact = float(torch.linalg.norm(got.double() - exact) / torch.linalg.norm(exact))
+                abs_err = float((got - plain).abs().max())
+                check(tuple(got.shape) == (M, B) and bool(torch.isfinite(got).all()), f"{kname} {label}: bad output")
+                it = iter(range(1 << 30))
+                ms = cuda_ms(lambda: fn(fs, vs[next(it) % nv], **kw))
+                plain_ms = cuda_ms(lambda: tk.kron_chain_ref(fs, vs[next(it) % nv], fast=fast))
+                chain_ms = cuda_ms(lambda: kron_matvec_fast(fs, vs[next(it) % nv], precision=precision, impl="xla"))
+            bound_ms, bound_by = kron_bound(sizes, B, precision)
+            emit({"phase": "kron", "kernel": kname, "shape": label, "sizes": list(sizes), "B": B,
+                  "precision": precision, "passes": len(tk._hopper_plan(list(sizes), list(sizes), B)),
+                  "rel_err_vs_plain": rel, "tol": KRON_TOL[precision], "rel_err_vs_exact": rel_exact,
+                  "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, "chain_ms": chain_ms,
+                  "bound_ms": bound_ms, "bound_by": bound_by, "gb_per_s": 2 * M * B * 4 / (ms * 1e-3) / 1e9,
+                  "distinct_vectors": nv, "card": card})
+            check(rel <= KRON_TOL[precision], f"{kname} {label} {precision}: rel err {rel:.3e} vs plain")
+            check(rel_exact <= (2e-2 if fast else 1e-5), f"{kname} {label} {precision}: rel err {rel_exact:.3e} vs exact")
+            entry = summary.setdefault(kname, {"max_abs_err": 0.0})
+            entry["max_abs_err"] = max(entry["max_abs_err"], abs_err)
+            # The line's times: each kernel at its grid configuration's grade.
+            if (label, precision) in (("grid32x5", "default"), ("grid8x512x512", "highest")):
+                entry.update(ms=ms, plain_ms=plain_ms, chain_ms=chain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        del fs, vs
+        torch.cuda.empty_cache()
+    return summary
+
+
+def phase_grid(card: str, name: str) -> None:
+    import torch
+    from gp_grief_tpu_torch.ops.cuda import kron as tk
+
+    cfg = GRID_CONFIGS[name]
+    xg, y = grid_data(name)
+    xs_mean, xs_var = grid_test_points(xg, 10_000), grid_test_points(xg, 512, seed=2)
+
+    m64 = grid_model(name, xg, y, torch.float64, "cuda", solver="schur")
+    nl64, t64 = timed(m64.log_likelihood)
+    mean64 = m64.predict(xs_mean, compute_var=False)
+    del m64
+    m32s = grid_model(name, xg, y, torch.float32, "cuda", solver="schur")
+    nl32s, t32s = timed(m32s.log_likelihood)
+    del m32s
+    model = grid_model(name, xg, y, torch.float32, "cuda")
+    kern = getattr(tk, cfg["kernel"])
+    before = kern.launches
+    nl32c, tcg = timed(model.log_likelihood)
+    launched = kern.launches - before
+    info = model.cg_info
+    mean, t_mean = timed(lambda: model.predict(xs_mean, compute_var=False))
+    (mean_v, var), t_var = timed(lambda: model.predict(xs_var))
+    torch.cuda.empty_cache()
+
+    ref = JAX_GRID_NLML_F64[name]
+    rel64 = abs(-nl64 - ref) / abs(ref) if ref is not None else None
+    gap = abs(nl32c - nl32s) / abs(nl32s)
+    scale = float(mean64.abs().max())
+    mean_err = float((mean.double() - mean64).abs().max()) / scale
+    emit({"phase": "grid", "config": name, "sizes": list(cfg["sizes"]), "M": int(np.prod(cfg["sizes"])),
+          "lengthscales": list(cfg["lengthscales"]), "noise_var": cfg["noise_var"], **cfg["model"],
+          "nlml_f64_schur": -nl64, "jax_nlml_f64_schur": ref, "rel_err_f64": rel64,
+          "rel_tol_f64": GRID_NLML_F64_RTOL, "nlml_f32_schur": -nl32s, "nlml_f32_cg": -nl32c,
+          "cg_gap": gap, "cg_gap_tol": GRID_CG_GAP_RTOL, "cg_iterations": info.iterations,
+          "cg_fallback_iterations": info.fallback_iterations,
+          "cg_rel_residual": float(info.residual_norm.max()) / float(torch.linalg.norm(torch.as_tensor(y).double())),
+          "kernel": cfg["kernel"], "kernel_launches_in_cg_nlml": launched,
+          "mean_rel_err_vs_f64": mean_err, "mean_tol": GRID_MEAN_RTOL,
+          "var_min": float(var.min()), "var_max": float(var.max()),
+          "s": {"nlml_f64_schur": t64, "nlml_f32_schur": t32s, "nlml_f32_cg": tcg,
+                "predict_mean_10k": t_mean, "predict_var_512": t_var}, "card": card})
+    check(ref is not None and rel64 <= GRID_NLML_F64_RTOL, f"{name}: f64 schur NLML {-nl64} vs JAX {ref}")
+    check(gap <= GRID_CG_GAP_RTOL, f"{name}: f32 CG NLML {nl32c} vs schur {nl32s} (gap {gap:.3e})")
+    check(launched > 0, f"{name}: the CG NLML never launched {cfg['kernel']}")
+    check(mean.shape == (10_000,) and bool(torch.isfinite(mean).all()), f"{name}: bad predictive mean")
+    check(var.shape == (512,) and bool(torch.isfinite(var).all() and (var > 0).all()), f"{name}: bad variance")
+    check(mean_err <= GRID_MEAN_RTOL, f"{name}: f32 mean off the f64 mean by {mean_err:.3e} of its scale")
+
+
 def main() -> int:
     import torch
 
@@ -354,7 +577,7 @@ def main() -> int:
     emit({"phase": "device", "name": kind, "nvidia_smi": card, "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    # Phase 2: build K1 from the checkout's sources.
+    # Phase 2: build the kernels from the checkout's sources.
     t0 = time.perf_counter()
     _build.load_library()
     ptxas = [ln.strip() for ln in _build.build_log().splitlines() if "ptxas info" in ln]
@@ -362,20 +585,42 @@ def main() -> int:
 
     # Phase 3: K1 against its plain version.
     k1 = phase_kernel(card)
+    # Phase 6 (kernels K2/K3 against their plain version) runs here, before
+    # the paths, so a wrong kernel stops the script early.
+    kron = phase_kron(card)
 
-    # Phases 4-5: the main path.  Count K1 launches over exactly these runs.
-    phi_fused.launches = 0
+    from gp_grief_tpu_torch.ops.cuda import kron_matvec_fused, kron_matvec_slab
+
+    # Phases 4-5: the GP-GRIEF path.  Count launches over exactly these runs.
+    phi_fused.launches = kron_matvec_slab.launches = kron_matvec_fused.launches = 0
     phase_kin40k(card)
     phase_uci2m(card)
-    launches = phi_fused.launches
-    check(launches > 0, "the main path never launched K1")
+    k1_launches = phi_fused.launches
+    check(k1_launches > 0, "the GP-GRIEF path never launched K1")
+
+    # Phase 7: the grid GP path.
+    phi_fused.launches = kron_matvec_slab.launches = kron_matvec_fused.launches = 0
+    for name in GRID_CONFIGS:
+        phase_grid(card, name)
+    k2_launches, k3_launches = kron_matvec_slab.launches, kron_matvec_fused.launches
+    check(k2_launches > 0 and k3_launches > 0, "the grid path never launched K2 or K3")
+
+    def kron_entry(name, replaces, launches):
+        k = kron[name]
+        return {"name": name, "route": "cuda", "source": "gp_grief_tpu_torch/csrc/kron_pass.cu",
+                "replaces": replaces, "launches": launches, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+                "library_ms": None, "chain_ms": k["chain_ms"]}
 
     print(card, flush=True)
-    emit({"kernels": [{
-        "name": "phi_fused", "route": "cuda", "source": "gp_grief_tpu_torch/csrc/phi_fused.cu",
-        "replaces": "gp_grief_tpu/ops/pallas/phi_pallas.py:93", "launches": launches,
-        "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-    }]})
+    emit({"kernels": [
+        {"name": "phi_fused", "route": "cuda", "source": "gp_grief_tpu_torch/csrc/phi_fused.cu",
+         "replaces": "gp_grief_tpu/ops/pallas/phi_pallas.py:93", "launches": k1_launches,
+         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None},
+        kron_entry("kron_slab", "gp_grief_tpu/ops/pallas/kron_pallas.py:1094", k2_launches),
+        kron_entry("kron_fused", "gp_grief_tpu/ops/pallas/kron_pallas.py:1036", k3_launches),
+    ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})
     return 0
 

@@ -1,7 +1,8 @@
 """Carry parameters and bases from the JAX package into the port.
 
 The JAX package's parameters are a pytree whose leaves have dotted names
-(``kernels.0.log_lengthscale``, …, ``log_noise``, ``log_w``); the port's
+(``kernels.0.log_lengthscale``, …, ``log_noise``, ``log_w`` for GP-GRIEF;
+the same without ``log_w`` for ``GPKroneckerRegression``); the port's
 ``state_dict()`` uses the same names.  These helpers take plain NumPy arrays,
 so this module needs no JAX.
 """
@@ -24,12 +25,13 @@ _LEAF = re.compile(r"^(kernels\.\d+\.(log_lengthscale|log_variance)|log_noise|lo
 def params_from_jax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """A ``state_dict`` for the port from the JAX leaves keyed by dotted name
     (``dict(zip(model._param_leaf_names(), leaves))`` on the JAX side);
-    ``load_state_dict`` casts it to the model's dtype and device.  Raises on
-    a name that is not a GP-GRIEF parameter leaf."""
+    ``load_state_dict`` casts it to the model's dtype and device.  Takes the
+    leaves of ``GPGriefModel`` and ``GPKroneckerRegression``; raises on any
+    other name."""
     out = {}
     for name, value in flat.items():
         if not _LEAF.match(name):
-            raise KeyError(f"params_from_jax: {name!r} is not a GP-GRIEF parameter leaf")
+            raise KeyError(f"params_from_jax: {name!r} is not a parameter leaf of a ported model")
         out[name] = torch.as_tensor(np.array(value))
     return out
 

@@ -30,7 +30,26 @@ from torch import nn
 from gp_grief_tpu_torch.optimize import FitResult, checkgrad, fit
 from gp_grief_tpu_torch.ops.solve import cholesky, logdet_from_chol, solve_chol
 
-__all__ = ["BaseModel", "BasisStats", "basis_nlml", "basis_posterior", "basis_stats_from_phi", "check_xy"]
+__all__ = [
+    "BaseModel", "BasisStats", "basis_nlml", "basis_posterior", "basis_stats_from_phi", "check_xy",
+    "resolve_device",
+]
+
+
+def resolve_device(x, device) -> torch.device:
+    """The device a model lives on: ``device`` when given, else the device of
+    a tensor ``x``, else the card.  ``device="cpu"`` is the only way onto the
+    CPU; with no CUDA device and no explicit device this raises rather than
+    running quietly on the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if isinstance(x, torch.Tensor):
+        return x.device
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: models run on the card by default; pass device='cpu' to run on the CPU"
+        )
+    return torch.device("cuda")
 
 
 def check_xy(x: torch.Tensor, y: torch.Tensor, what: str = "x"):

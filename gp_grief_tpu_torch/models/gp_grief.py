@@ -32,7 +32,14 @@ from gp_grief_tpu_torch.grid import InducingGrid
 from gp_grief_tpu_torch.kernels.base import inverse_positive
 from gp_grief_tpu_torch.kernels.grief import GriefBasis, build_basis, phi, stack_kernels
 from gp_grief_tpu_torch.kernels.stationary import Stationary
-from gp_grief_tpu_torch.models.base import BaseModel, BasisStats, basis_nlml, basis_posterior, check_xy
+from gp_grief_tpu_torch.models.base import (
+    BaseModel,
+    BasisStats,
+    basis_nlml,
+    basis_posterior,
+    check_xy,
+    resolve_device,
+)
 
 __all__ = ["GPGriefModel", "init_grief_state"]
 
@@ -58,9 +65,7 @@ def init_grief_state(x, y, kern_list, grid, n_eigs, noise_var, mbar, dtype=None,
     initial parameters.  Returns ``(x, y, grid, xg, n_eigs, dims, params)``
     with ``params = {"kernels": [...], "log_noise": ..., "log_w": ...}``."""
     dtype = _resolve_dtype(x, dtype)
-    device = torch.device(device) if device is not None else (
-        x.device if isinstance(x, torch.Tensor) else torch.device("cpu")
-    )
+    device = resolve_device(x, device)
     x, y = check_xy(_to_tensor(x, dtype, device), _to_tensor(y, dtype, device))
     if grid is None:
         grid = InducingGrid.build(x.cpu().numpy(), mbar=mbar)
@@ -89,7 +94,9 @@ class GPGriefModel(BaseModel):
     """``GPGriefModel(x, y, kern_list, grid, n_eigs=, noise_var=, ..., dtype=, device=)``.
 
     ``dtype`` defaults to ``x``'s floating type (float32 arrays stay float32,
-    anything else becomes float64); ``device`` to ``x``'s device, else CPU.
+    anything else becomes float64); ``device`` to ``x``'s device for a tensor
+    ``x``, else the card (``device="cpu"`` for the CPU; without a CUDA device
+    and without ``device`` the constructor raises).
     """
 
     # Row-chunk size for the O(n·p²) reductions: bounds the live Φ block at

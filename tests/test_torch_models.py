@@ -210,17 +210,34 @@ def test_checkgrad_and_input_validation():
     assert tm.checkgrad(sample=12)
     x, y, _ = _data()
     with pytest.raises(ValueError, match="one response per row"):
-        gpt.GPGriefModel(x, y[:-1], gpt.make_kernel("rbf"), mbar=5)
+        gpt.GPGriefModel(x, y[:-1], gpt.make_kernel("rbf"), mbar=5, device="cpu")
     with pytest.raises(ValueError, match="need 3 kernels"):
-        gpt.GPGriefModel(x, y, [gpt.make_kernel("rbf")] * 2, mbar=5)
-    m = gpt.GPGriefModel(x.astype(np.float32), y.astype(np.float32), gpt.make_kernel("rbf"), mbar=5, n_eigs=10**6)
+        gpt.GPGriefModel(x, y, [gpt.make_kernel("rbf")] * 2, mbar=5, device="cpu")
+    m = gpt.GPGriefModel(x.astype(np.float32), y.astype(np.float32), gpt.make_kernel("rbf"), mbar=5,
+                         n_eigs=10**6, device="cpu")
     assert m.x.dtype == torch.float32 and m.n_eigs == 125 and m.log_w.shape == (125,)
 
 
+def test_models_default_to_the_card(monkeypatch):
+    """Built from NumPy with no ``device``, a model goes to the card; with no
+    card it raises instead of running on the CPU.  A tensor keeps its device."""
+    x, y, _ = _data()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gpt.GPGriefModel(x, y, gpt.make_kernel("rbf"), mbar=5)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gpt.GPKroneckerRegression([np.linspace(0, 1, 4)[:, None]] * 2, np.zeros(16), gpt.make_kernel("rbf"))
+    m = gpt.GPGriefModel(torch.as_tensor(x), torch.as_tensor(y), gpt.make_kernel("rbf"), mbar=5)
+    assert m.x.device.type == "cpu"
+
+
 def test_port_imports_without_jax():
+    # Every module of the port, not only what the package root imports.
     code = (
-        "import sys; sys.path.insert(0, sys.argv[1]); import gp_grief_tpu_torch; "
-        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if m.startswith('jax'))"
+        "import sys, importlib, pkgutil; sys.path.insert(0, sys.argv[1]); import gp_grief_tpu_torch as p; "
+        "[importlib.import_module(m.name) for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]; "
+        "assert 'jax' not in sys.modules and 'gp_grief_tpu' not in sys.modules, "
+        "sorted(m for m in sys.modules if m.startswith(('jax', 'gp_grief_tpu.')))"
     )
     proc = subprocess.run([sys.executable, "-c", code, str(REPO)], capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
