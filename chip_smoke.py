@@ -31,10 +31,26 @@ non-zero without printing the final line:
              float64 JAX run, float32 CG NLML against float32 schur, the
              kernel launches during the CG NLML, and predict (mean on 10,000
              points, variance on 512).
+8. ski_kernel — K4 (interp_wt) and K5 (wtw_stencil) against their plain
+             versions on the card, float32 and float64, at the SKI
+             configurations' shapes and one ragged d=3 lattice; two launches
+             bit-identical; CUDA-event times of the kernel, the plain version
+             and one torch.sparse.mm of the same sparse matrix, beside the
+             bound.
+9. ski     — the two SKI configurations (SKI_CONFIGS) end to end through
+             ``GPSKIRegression``.  First float64, with the numpy probes of
+             tools/ski_reference_f64.json: the NLML and exact predictions
+             (256 points) at that file's size against the JAX package's
+             float64 values, then the NLML and predictions (mean on 10,000
+             points, exact variance on 256) at full size.  Then float32 at
+             full size: the NLML with the same probes, the mean and variance
+             at the same points, each held to the card's float64; the NLML
+             as a user calls it, profiled (wall, device time, idle share,
+             launches); plan build times; LOVE on ski100k_data.
 
 Then the ``nvidia-smi`` name/power-limit line, one ``{"kernels": [...]}``
-line (K1 launches from phases 4-5, K2/K3 launches from phase 7) and, last,
-``{"ok": true, "device": {...}}``.  This script imports no JAX.
+line (K1 launches from phases 4-5, K2/K3 from phase 7, K4/K5 from phase 9's
+float32 runs) and, last, ``{"ok": true, "device": {...}}``.  This script imports no JAX.
 """
 
 from __future__ import annotations
@@ -511,6 +527,70 @@ def phase_kron(card: str) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# SKI configurations (GPSKIRegression) and kernels K4/K5.
+# ---------------------------------------------------------------------------
+
+SKI_CONFIGS = {
+    # benchmarks/exp_r4_ski_precond.py:29-44: n = 100,000 scattered points in
+    # [0, 4]^4 on a 32^4 lattice (M = 1,048,576), the data-space solver with
+    # rank-256 deflation.  Every operator apply runs K4 at (9, 100k) -> (9, 1M).
+    "ski100k_data": dict(
+        n=100_000, m=32, box=(0.0, 4.0), lengthscale=0.8, noise_var=0.1,
+        model=dict(solver="data", num_probes=8, lanczos_iters=30, cg_iters=300, cg_tol=1e-6,
+                   precond_rank=256, cg_precision="exact"),
+        kernel="interp_wt",
+    ),
+    # benchmarks/exp_r9_stencil_e2e.py:24-30, 58-67: n = 1,000,000 points in
+    # [0, 1]^4 on a 32^4 lattice, the whitened lattice dual with the WtW
+    # stencil.  Every whitened apply runs K5; W^T y runs K4 once.
+    "ski1m_lattice": dict(
+        n=1_000_000, m=32, box=(0.0, 1.0), lengthscale=0.3, noise_var=0.05,
+        model=dict(solver="lattice", num_probes=8, lanczos_iters=30, cg_iters=300, cg_tol=1e-6,
+                   wtw_stencil=True),
+        kernel="wtw_stencil",
+    ),
+}
+SKI_D = 4
+
+
+def ski_data(name: str, n=None, m=None):
+    """Points, responses (float32) and grid (one (m, 1) array per dimension)
+    of a SKI configuration, from ``numpy.random.default_rng(0)`` as in its
+    benchmark script.  ``n``/``m`` shrink it (the CPU tests' and the float64
+    reference's sizes)."""
+    cfg = SKI_CONFIGS[name]
+    n = int(n or cfg["n"])
+    m = int(m or cfg["m"])
+    lo, hi = cfg["box"]
+    rng = np.random.default_rng(0)
+    x = rng.uniform(lo, hi, size=(n, SKI_D)).astype(np.float32)
+    if name == "ski100k_data":
+        f = np.sin(x[:, 0]) * np.cos(x[:, 1]) + 0.3 * x[:, 2] - 0.2 * x[:, 3] ** 2
+        y = (f + 0.1 * rng.standard_normal(n)).astype(np.float32)
+    else:
+        f = np.sin(3 * x[:, 0]) * np.cos(2 * x[:, 1]) + 0.5 * x[:, 2] * x[:, 3]
+        y = (f + 0.05 * rng.standard_normal(n)).astype(np.float32)
+    xg = [np.linspace(lo, hi, m, dtype=np.float32)[:, None] for _ in range(SKI_D)]
+    return x, y, xg
+
+
+def ski_test_points(name: str, count: int, seed: int = 1):
+    """Scattered test points inside a SKI configuration's box, float32."""
+    lo, hi = SKI_CONFIGS[name]["box"]
+    return np.random.default_rng(seed).uniform(lo, hi, size=(count, SKI_D)).astype(np.float32)
+
+
+def ski_probe(call: int, shape) -> np.ndarray:
+    """The ``call``-th Rademacher probe matrix of one NLML evaluation (call 0:
+    the CG probes, call 1: the SLQ probes), float64, from numpy.  Both
+    packages are handed these in parity runs (tools/ski_reference_jax.py
+    patches ``jax.random.rademacher``; the port's draw is
+    ``gp_grief_tpu_torch.ops.lanczos.rademacher``)."""
+    rng = np.random.default_rng([20261016, call])
+    return (2.0 * rng.integers(0, 2, size=shape) - 1.0).astype(np.float64)
+
+
 def phase_grid(card: str, name: str) -> None:
     import torch
     from gp_grief_tpu_torch.ops.cuda import kron as tk
@@ -561,6 +641,316 @@ def phase_grid(card: str, name: str) -> None:
     check(mean_err <= GRID_MEAN_RTOL, f"{name}: f32 mean off the f64 mean by {mean_err:.3e} of its scale")
 
 
+# float64 on the card against the JAX package's float64 CPU run of the same
+# configuration, probes and eigen-conventions (tools/ski_reference_jax.py),
+# with cg_tol tightened to 1e-10 in both: rounding only.  At the
+# configurations' 1e-6 two float64 runs stop their CG a step apart and their
+# predictive means differ by ~1.5e-8 (tests/test_torch_slice.py's shrunk
+# lattice, on the CPU); the NLML's quadratic form is second order in that.
+SKI_F64_RTOL = 1e-8
+# float32 NLML against the card's float64 one, same probes: float32 CG stops
+# at 20·eps32 ≈ 2.4e-6 relative residual at the earliest and its SLQ rounds
+# in float32; the NLML is a sum of ~1e5-1e6-sized terms.
+SKI_F32_RTOL = 1e-3
+# float32 predictions against the card's float64 ones at the same points,
+# relative to the float64 values' largest magnitude; both stop their CG at
+# tol 1e-6.  Measured on an H100 (PERF.md §6, PR 3): ski100k_data mean 1.5e-5,
+# variance 3.0e-3; ski1m_lattice mean 1.7e-3, variance 1.2e-2, the same bits
+# in every run on one card.  The lattice dual's float32 model clamps the
+# per-dimension eigenvalues at 10·eps32·λmax (float64: 10·eps64·λmax), a
+# rougher prior where the spectrum decays fastest; the JAX package's float32
+# lattice shows the same mean gap as the port's (tools/ski_f32_gap_jax.py).
+# Each limit is about three times the measured gap.
+SKI_F32_PRED_RTOL = {"ski100k_data": {"mean": 5e-5, "var": 1e-2},
+                     "ski1m_lattice": {"mean": 5e-3, "var": 4e-2}}
+# K4/K5 against their plain versions, relative to the output's largest
+# magnitude: the same short sums in another order, with fused multiply-adds.
+SKI_KERNEL_TOL = {"float32": 1e-6, "float64": 1e-12}
+# Where phases 8-9 run (a CPU rehearsal at a tiny size sets "cpu").
+DEVICE = "cuda"
+SKI_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", "ski_reference_f64.json")
+
+# (kernel, label, geometry, B): the shapes phase 8 holds K4/K5 to.  The
+# configurations' own geometry, and one ragged d = 3 lattice.
+SKI_KERNEL_SHAPES = [
+    ("interp_wt", "ski100k_data", "ski100k_data", 9),  # every data-space operator apply
+    ("interp_wt", "ski1m_lattice_Wty", "ski1m_lattice", 1),  # W^T y of the lattice dual
+    ("interp_wt", "ragged_d3_23x17x29", "ragged", 9),
+    ("wtw_stencil", "ski1m_lattice", "ski1m_lattice", 9),  # every whitened apply of the CG
+    ("wtw_stencil", "ragged_d3_23x17x29", "ragged", 9),
+]
+
+
+def device_items(prof, top=10):
+    """Device time of a ``torch.profiler`` run: the total and the ``top``
+    largest kernels (device events only; the CPU-side ops that launched them
+    report the same time and would count it twice)."""
+    rows = []
+    for ev in prof.key_averages():
+        if not str(ev.device_type).endswith("CUDA"):
+            continue
+        dev = getattr(ev, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(ev, "self_cuda_time_total", 0)
+        if dev > 0:
+            rows.append((ev.key, dev / 1e3, ev.count))
+    rows.sort(key=lambda r: -r[1])
+    total = sum(r[1] for r in rows)
+    return total, [{"name": k[:90], "ms": ms, "count": c} for k, ms, c in rows[:top]]
+
+
+class NumpyProbes:
+    """``ski_probe`` draws in call order, in place of the port's
+    ``ops.lanczos.rademacher`` (the probes tools/ski_reference_jax.py hands
+    the JAX package)."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def __call__(self, shape, *, dtype, device, generator):
+        import torch
+
+        z = ski_probe(self.calls, tuple(shape))
+        self.calls += 1
+        return torch.as_tensor(z, dtype=dtype, device=device)
+
+
+def with_numpy_probes(fn):
+    """Run ``fn()`` with the port's probe draw replaced by :class:`NumpyProbes`."""
+    import gp_grief_tpu_torch.ops.lanczos as tlz
+
+    draw, tlz.rademacher = tlz.rademacher, NumpyProbes()
+    try:
+        return fn()
+    finally:
+        tlz.rademacher = draw
+
+
+def ski_model(name: str, x, y, xg, dtype, **overrides):
+    import gp_grief_tpu_torch as gpt
+
+    cfg = SKI_CONFIGS[name]
+    kerns = [gpt.make_kernel("rbf", lengthscale=cfg["lengthscale"]) for _ in range(SKI_D)]
+    return gpt.GPSKIRegression(x, y, kerns, xg, noise_var=cfg["noise_var"], dtype=dtype, device=DEVICE,
+                               **dict(cfg["model"], **overrides))
+
+
+def ski_geometry(which: str):
+    """Points and grid of a phase-8 shape (NumPy, float32)."""
+    if which in SKI_CONFIGS:
+        x, _, xg = ski_data(which)
+        return x, xg
+    rng = np.random.default_rng(5)
+    xg = [np.sort(rng.uniform(0, 1, m)).astype(np.float32) for m in (23, 17, 29)]
+    return rng.uniform(-0.05, 1.05, (5000, 3)).astype(np.float32), xg
+
+
+def phase_ski_kernels(card: str) -> dict:
+    """K4 and K5 against their plain versions, float32 and float64, two
+    launches bit-identical; CUDA-event times of the kernel, the plain version
+    and one torch.sparse.mm of the same sparse matrix, beside the bound."""
+    import torch
+    from gp_grief_tpu_torch.ops import interp as tint
+    from gp_grief_tpu_torch.ops import interp_stencil as tst
+    from gp_grief_tpu_torch.ops.cuda import interp_wt, wtw_stencil
+
+    summary = {}
+    for kname, label, which, B in SKI_KERNEL_SHAPES:
+        x, xg = ski_geometry(which)
+        iw = tint.interp_weights(x, xg)
+        stream = tint.build_corner_stream(iw)
+        n, M = int(x.shape[0]), int(np.prod(iw.shape))
+        for dtype in (torch.float32, torch.float64):
+            tag = str(dtype).replace("torch.", "")
+            size = torch.empty(0, dtype=dtype).element_size()
+            g = torch.Generator(device="cpu").manual_seed(0)
+            with torch.no_grad():
+                if kname == "interp_wt":
+                    plan = tint.build_interp_plan(iw, stream=stream, dtype=dtype, device=DEVICE)
+                    u = torch.randn((B, n), generator=g, dtype=torch.float64).to(DEVICE, dtype)
+                    L = int(plan.src_col.shape[0])
+                    crow = torch.cat([plan.start_ptr[:1], plan.end_ptr]).long()
+                    lib_mat = torch.sparse_csr_tensor(crow, plan.src_col.long(), plan.w_sorted, size=(M, n))
+                    lib_rhs = u.T.contiguous()
+                    fn, plain = (lambda: interp_wt(plan, u)), (lambda: tint.interp_rmatvec_bm_exact(plan, u))
+                    nbytes = size * (B * n + L + B * M) + 4 * (L + 2 * M)
+                    ops, extra = 2.0 * L * B, {"n": n, "stream_entries": L}
+                else:
+                    st = tst.build_wtw_stencil(iw, stream=stream, dtype=dtype, device=DEVICE)
+                    v = torch.randn((B, M), generator=g, dtype=torch.float64).to(DEVICE, dtype)
+                    D = len(st.deltas)
+                    cells = torch.arange(M, device=DEVICE)
+                    cols = cells[None, :] + st.delta_t[:, None]
+                    keep = (cols >= 0) & (cols < M) & (st.tables != 0)
+                    idx = torch.stack([cells.expand(D, M)[keep], cols[keep]])
+                    lib_mat = torch.sparse_coo_tensor(idx, st.tables[keep], (M, M)).coalesce().to_sparse_csr()
+                    del cols, keep, idx
+                    lib_rhs = v.T.contiguous()
+                    fn, plain = (lambda: wtw_stencil(st, v)), (lambda: tst.stencil_apply_ref(st, v))
+                    nbytes = size * (D * M + 2 * B * M) + 8 * D
+                    ops, extra = 2.0 * D * B * M, {"offsets": D, "nonzeros": int(lib_mat.values().numel())}
+                got = fn()
+                again = fn()
+                torch.cuda.synchronize()
+                ref = plain()
+                lib = torch.sparse.mm(lib_mat, lib_rhs).T
+                scale = float(ref.abs().max())
+                rel = float((got - ref).abs().max()) / scale
+                abs_err = float((got - ref).abs().max())
+                rel_lib = float((lib - ref).abs().max()) / scale
+                identical = bool(torch.equal(got, again))
+                finite = tuple(got.shape) == (B, M) and bool(torch.isfinite(got).all())
+                ms = cuda_ms(fn)
+                plain_ms = cuda_ms(plain)
+                library_ms = cuda_ms(lambda: torch.sparse.mm(lib_mat, lib_rhs))
+            t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_FLOPS["highest"]
+            bound_ms, bound_by = max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+            emit({"phase": "ski_kernel", "kernel": kname, "shape": label, "grid": list(iw.shape), "M": M, "B": B,
+                  "dtype": tag, **extra, "max_rel_err": rel, "max_abs_err": abs_err, "tol": SKI_KERNEL_TOL[tag],
+                  "tol_reason": "relative to the output's largest magnitude", "library_rel_err": rel_lib,
+                  "two_launches_identical": identical, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                  "library": "torch.sparse.mm (CSR)", "bound_ms": bound_ms, "bound_by": bound_by,
+                  "gb_per_s": nbytes / (ms * 1e-3) / 1e9, "card": card})
+            check(finite, f"{kname} {label} {tag}: bad output")
+            check(rel <= SKI_KERNEL_TOL[tag], f"{kname} {label} {tag}: rel err {rel:.3e} vs plain")
+            check(identical, f"{kname} {label} {tag}: two launches differ")
+            entry = summary.setdefault(kname, {"max_abs_err": 0.0})
+            if tag == "float32":
+                entry["max_abs_err"] = max(entry["max_abs_err"], abs_err)
+                if label in SKI_CONFIGS:
+                    entry.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by)
+            del got, again, ref, lib, lib_mat, lib_rhs
+            torch.cuda.empty_cache()
+    return summary
+
+
+def load_ski_reference() -> dict:
+    with open(SKI_REFERENCE) as f:
+        return json.load(f)
+
+
+def phase_ski_f64(name: str, reference: dict) -> dict:
+    """float64 runs of one SKI configuration on the card, with the JAX
+    package's numpy probes.  (a) At the reference's size and CG tolerance:
+    the NLML and exact predictions at its test points, held to its recorded
+    values.  (b) At full size: the NLML and the predictions at the float32
+    run's test points, which phase_ski holds the float32 model to."""
+    import torch
+
+    f64 = np.float64
+    r = reference[name]
+    x, y, xg = ski_data(name, r["n"], r["m"])
+    model = ski_model(name, x.astype(f64), y.astype(f64), [g.astype(f64) for g in xg], torch.float64,
+                      cg_tol=r["cg_tol"])
+    nl_ref, t_nl_ref = timed(lambda: with_numpy_probes(lambda: -model.log_likelihood()))
+    (mean, var), t_pred_ref = timed(lambda: model.predict(ski_test_points(name, r["points"]).astype(f64),
+                                                          variance="exact", chunk=r["chunk"]))
+    jm, jv = np.asarray(r["mean"]), np.asarray(r["var"])
+    errs = {"nlml": abs(nl_ref - r["nlml"]) / abs(r["nlml"]),
+            "mean": float(np.abs(mean.cpu().numpy() - jm).max() / np.abs(jm).max()),
+            "var": float(np.abs(var.cpu().numpy() - jv).max() / np.abs(jv).max())}
+    for what, err in errs.items():
+        check(err <= SKI_F64_RTOL, f"{name}: f64 {what} rel err {err:.3e} vs the JAX package")
+    del model
+    torch.cuda.empty_cache()
+    x, y, xg = ski_data(name)
+    model = ski_model(name, x.astype(f64), y.astype(f64), [g.astype(f64) for g in xg], torch.float64)
+    nl, t_nl = timed(lambda: with_numpy_probes(lambda: -model.log_likelihood()))
+    mean, t_mean = timed(lambda: model.predict(ski_test_points(name, 10_000).astype(f64), compute_var=False))
+    (_, var), t_var = timed(lambda: model.predict(ski_test_points(name, 256, seed=2).astype(f64)))
+    del model
+    torch.cuda.empty_cache()
+    return {"reference_size": {k: r[k] for k in ("n", "m", "cg_tol", "points", "chunk")},
+            "nlml_vs_jax": nl_ref, "jax_nlml": r["nlml"], "rel_err_vs_jax": errs, "nlml": nl,
+            "mean": mean, "var": var,
+            "s": {"nlml_ref_size": t_nl_ref, "predict_ref_size": t_pred_ref, "nlml": t_nl,
+                  "predict_mean_10k": t_mean, "predict_var_256": t_var}}
+
+
+def phase_ski(card: str, name: str, ref64: dict) -> dict:
+    """One SKI configuration in float32 through ``GPSKIRegression`` on the
+    card, held to its float64 run (``phase_ski_f64``); returns the kernel
+    launches of the profiled NLML."""
+    import warnings
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gp_grief_tpu_torch.ops.cuda import interp_wt, kron_matvec_fused, kron_matvec_slab, wtw_stencil
+
+    kernels = {"K4": interp_wt, "K5": wtw_stencil, "K2": kron_matvec_slab, "K3": kron_matvec_fused}
+    cfg = SKI_CONFIGS[name]
+
+    def counts():
+        return {k: fn.launches for k, fn in kernels.items()}
+
+    # (a) The NLML with the float64 run's probes; the first call builds the plans.
+    x, y, xg = ski_data(name)
+    model = ski_model(name, x, y, xg, torch.float32)
+    nl32, t32_first = timed(lambda: with_numpy_probes(lambda: -model.log_likelihood()))
+    nl64 = ref64["nlml"]
+    gap = abs(nl32 - nl64) / abs(nl64)
+    # (b) The NLML as a user calls it (the model's own probes), profiled.
+    torch.cuda.synchronize()
+    before = counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        nl_own = -model.log_likelihood()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launched = {k: v - before[k] for k, v in counts().items()}
+    device_ms, items = device_items(prof)
+    info = model.cg_info
+    # (c) predict: the mean at 10,000 points, exact variances at 256, each
+    # against the float64 model's at the same points.
+    xs_var = ski_test_points(name, 256, seed=2)
+    mean, t_mean = timed(lambda: model.predict(ski_test_points(name, 10_000), compute_var=False))
+    (_, var), t_var = timed(lambda: model.predict(xs_var))
+    mean64, var64 = ref64["mean"], ref64["var"]
+    mean_err = float((mean.double() - mean64).abs().max() / mean64.abs().max())
+    var_err = float((var.double() - var64).abs().max() / var64.abs().max())
+    tol = SKI_F32_PRED_RTOL[name]
+    out = {"phase": "ski", "config": name, "n": cfg["n"], "M": int(cfg["m"]) ** SKI_D,
+           "lengthscale": cfg["lengthscale"], "noise_var": cfg["noise_var"], **cfg["model"],
+           "f64_reference_size": ref64["reference_size"], "nlml_f64_vs_jax": ref64["nlml_vs_jax"],
+           "jax_nlml_f64": ref64["jax_nlml"], "rel_err_vs_jax": ref64["rel_err_vs_jax"],
+           "rel_tol_vs_jax": SKI_F64_RTOL, "nlml_f64": nl64, "nlml_f32": nl32, "f32_gap": gap,
+           "f32_gap_tol": SKI_F32_RTOL, "mean_rel_err_vs_f64": mean_err, "mean_tol": tol["mean"],
+           "var_rel_err_vs_f64": var_err, "var_tol": tol["var"],
+           "nlml_f32_own_probes": nl_own, "cg_iterations": info.iterations,
+           "cg_rel_residual": float(info.residual_norm[0]) / float(torch.linalg.norm(model.y.double())),
+           "launches_in_nlml": launched, "nlml_wall_ms": wall * 1e3, "nlml_device_ms": device_ms,
+           "idle_share": 1 - device_ms / (wall * 1e3), "device_items": items,
+           "plan_build_s": dict(model.plan_seconds),
+           "var_min": float(var.min()), "var_max": float(var.max()),
+           "s": {**{"f64_" + k: v for k, v in ref64["s"].items()}, "f32_first_nlml": t32_first,
+                 "predict_mean_10k": t_mean, "predict_var_256": t_var}}
+    if cfg["model"]["solver"] == "data":
+        # LOVE at rank 100 with its guard under the default policy: a tripped
+        # guard warns and returns the exact route's variances.
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            (_, var_love), t_love = timed(lambda: model.predict(xs_var, variance="lanczos", var_rank=100))
+        tripped = any("auto-upgrading" in str(w.message) for w in caught)
+        love_dev = float(((var_love - var).abs() / var.abs().max()).max())
+        out.update(love_var_rank=100, love_guard_tripped=tripped, love_rel_dev_vs_exact=love_dev,
+                   love_guard_message=next((str(w.message)[:160] for w in caught), None))
+        out["s"]["predict_love_256"] = t_love
+        check(bool(torch.isfinite(var_love).all()), f"{name}: non-finite LOVE variances")
+        check(not tripped or love_dev <= 1e-6, f"{name}: the LOVE guard's exact route differs by {love_dev:.3e}")
+    emit({**out, "card": card})
+    check(gap <= SKI_F32_RTOL, f"{name}: f32 NLML {nl32} vs f64 {nl64} (gap {gap:.3e})")
+    check(mean.shape == (10_000,) and bool(torch.isfinite(mean).all()), f"{name}: bad predictive mean")
+    check(var.shape == (256,) and bool(torch.isfinite(var).all() and (var >= 0).all()), f"{name}: bad variance")
+    check(mean_err <= tol["mean"], f"{name}: f32 mean off the f64 mean by {mean_err:.3e} of its scale")
+    check(var_err <= tol["var"], f"{name}: f32 variance off the f64 one by {var_err:.3e} of its scale")
+    check(np.isfinite(nl_own), f"{name}: non-finite NLML")
+    del model
+    torch.cuda.empty_cache()
+    return launched
+
+
 def main() -> int:
     import torch
 
@@ -583,44 +973,66 @@ def main() -> int:
     ptxas = [ln.strip() for ln in _build.build_log().splitlines() if "ptxas info" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
 
-    # Phase 3: K1 against its plain version.
+    # Phases 3, 6 and 8 (the kernels against their plain versions) run here,
+    # before the paths, so a wrong kernel stops the script early.
     k1 = phase_kernel(card)
-    # Phase 6 (kernels K2/K3 against their plain version) runs here, before
-    # the paths, so a wrong kernel stops the script early.
     kron = phase_kron(card)
+    ski_k = phase_ski_kernels(card)
 
-    from gp_grief_tpu_torch.ops.cuda import kron_matvec_fused, kron_matvec_slab
+    from gp_grief_tpu_torch.ops.cuda import interp_wt, kron_matvec_fused, kron_matvec_slab, wtw_stencil
 
+    counters = (phi_fused, kron_matvec_slab, kron_matvec_fused, interp_wt, wtw_stencil)
+
+    def reset():
+        for fn in counters:
+            fn.launches = 0
+
+    entries = []
     # Phases 4-5: the GP-GRIEF path.  Count launches over exactly these runs.
-    phi_fused.launches = kron_matvec_slab.launches = kron_matvec_fused.launches = 0
+    reset()
     phase_kin40k(card)
     phase_uci2m(card)
-    k1_launches = phi_fused.launches
-    check(k1_launches > 0, "the GP-GRIEF path never launched K1")
+    check(phi_fused.launches > 0, "the GP-GRIEF path never launched K1")
+    entries.append(
+        {"name": "phi_fused", "route": "cuda", "source": "gp_grief_tpu_torch/csrc/phi_fused.cu",
+         "replaces": "gp_grief_tpu/ops/pallas/phi_pallas.py:93", "launches": phi_fused.launches,
+         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None})
 
     # Phase 7: the grid GP path.
-    phi_fused.launches = kron_matvec_slab.launches = kron_matvec_fused.launches = 0
+    reset()
     for name in GRID_CONFIGS:
         phase_grid(card, name)
-    k2_launches, k3_launches = kron_matvec_slab.launches, kron_matvec_fused.launches
-    check(k2_launches > 0 and k3_launches > 0, "the grid path never launched K2 or K3")
-
-    def kron_entry(name, replaces, launches):
+    check(kron_matvec_slab.launches > 0 and kron_matvec_fused.launches > 0,
+          "the grid path never launched K2 or K3")
+    for name, replaces, fn in (("kron_slab", "gp_grief_tpu/ops/pallas/kron_pallas.py:1094", kron_matvec_slab),
+                               ("kron_fused", "gp_grief_tpu/ops/pallas/kron_pallas.py:1036", kron_matvec_fused)):
         k = kron[name]
-        return {"name": name, "route": "cuda", "source": "gp_grief_tpu_torch/csrc/kron_pass.cu",
-                "replaces": replaces, "launches": launches, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-                "library_ms": None, "chain_ms": k["chain_ms"]}
+        entries.append({"name": name, "route": "cuda", "source": "gp_grief_tpu_torch/csrc/kron_pass.cu",
+                        "replaces": replaces, "launches": fn.launches, "max_abs_err": k["max_abs_err"],
+                        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                        "bound_by": k["bound_by"], "library_ms": None, "chain_ms": k["chain_ms"]})
+
+    # Phase 9: the SKI path.  The float64 runs (parity, and the float32 runs'
+    # yardstick) come first; the launches count the float32 runs alone.
+    reference = load_ski_reference()
+    ref64 = {name: phase_ski_f64(name, reference) for name in SKI_CONFIGS}
+    reset()
+    per_nlml = {name: phase_ski(card, name, ref64[name]) for name in SKI_CONFIGS}
+    check(per_nlml["ski100k_data"]["K4"] > 0, "ski100k_data's NLML never launched K4")
+    check(per_nlml["ski1m_lattice"]["K5"] > 0, "ski1m_lattice's NLML never launched K5")
+    for name, key, replaces, fn in (("interp_wt", "K4", "gp_grief_tpu/ops/interp.py:712", interp_wt),
+                                    ("wtw_stencil", "K5", "gp_grief_tpu/ops/interp_stencil.py:396", wtw_stencil)):
+        check(fn.launches > 0, f"the SKI path never launched {name}")
+        k = ski_k[name]
+        entries.append({"name": name, "route": "cuda", "source": f"gp_grief_tpu_torch/csrc/{name}.cu",
+                        "replaces": replaces, "launches": fn.launches, "max_abs_err": k["max_abs_err"],
+                        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                        "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+                        "launches_per_nlml": {c: per_nlml[c][key] for c in SKI_CONFIGS}})
 
     print(card, flush=True)
-    emit({"kernels": [
-        {"name": "phi_fused", "route": "cuda", "source": "gp_grief_tpu_torch/csrc/phi_fused.cu",
-         "replaces": "gp_grief_tpu/ops/pallas/phi_pallas.py:93", "launches": k1_launches,
-         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None},
-        kron_entry("kron_slab", "gp_grief_tpu/ops/pallas/kron_pallas.py:1094", k2_launches),
-        kron_entry("kron_fused", "gp_grief_tpu/ops/pallas/kron_pallas.py:1036", k3_launches),
-    ]})
+    emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})
     return 0
 

@@ -1,13 +1,16 @@
 """gp_grief_tpu_torch — the PyTorch/CUDA port of gp_grief_tpu.
 
-Two paths so far:
+Three paths so far:
 
 * the closed-form GP-GRIEF model: ``InducingGrid`` → per-dimension Gram
   matrices and ``eigh`` → log-space top-p Kronecker eigenvalue selection → Φ
   assembly (kernel K1) → ΦᵀΦ / Φᵀy → O(p³) NLML → ``optimize`` → ``predict``;
 * the exact grid GP ``GPKroneckerRegression``: Schur (eigen) or CG solves of
   ``⊗K_d + σ²I``, the CG matvec on kernels K2/K3, deflation preconditioning,
-  mixed-precision refinement, chunked predict.
+  mixed-precision refinement, chunked predict;
+* SKI, ``GPSKIRegression``: scattered data interpolated onto a grid, its
+  log-likelihood (CG + SLQ, data-space or lattice-dual solver) and predict
+  (exact and LOVE variances); ``Wᵀ`` on kernel K4, the dual's ``WᵀW`` on K5.
 
 The kernels are hand-written CUDA for Hopper and run on CUDA tensors.  Models
 run on the card unless built with ``device="cpu"`` (or from CPU tensors).
@@ -37,8 +40,9 @@ from gp_grief_tpu_torch.grid import InducingGrid
 from gp_grief_tpu_torch.kernels.stationary import make_kernel
 from gp_grief_tpu_torch.models.gp_grief import GPGriefModel
 from gp_grief_tpu_torch.models.gp_kron import GPKroneckerRegression
+from gp_grief_tpu_torch.models.gp_ski import GPSKIRegression
 
 __all__ = [
-    "InducingGrid", "make_kernel", "GPGriefModel", "GPKroneckerRegression",
+    "InducingGrid", "make_kernel", "GPGriefModel", "GPKroneckerRegression", "GPSKIRegression",
     "convert", "kernels", "models", "ops", "optimize",
 ]

@@ -6,8 +6,13 @@ first use (``_build.py``) and bound with ctypes.
 * K2 :func:`kron_matvec_slab` and K3 :func:`kron_matvec_fused` — the
   Kronecker matvec (``csrc/kron_pass.cu``; replace ``kron_pallas.py``'s
   slab and general fused schedules).
+* K4 :func:`interp_wt` — the SKI interpolation transpose ``Wᵀu``
+  (``csrc/interp_wt.cu``; replaces ``gp_grief_tpu/ops/interp.py:make_onehot_rmatvec``).
+* K5 :func:`wtw_stencil` — the SKI ``WᵀW`` stencil (``csrc/wtw_stencil.cu``;
+  replaces ``gp_grief_tpu/ops/interp_stencil.py:_apply_pallas``).
 """
 
+from gp_grief_tpu_torch.ops.cuda.interp import interp_wt
 from gp_grief_tpu_torch.ops.cuda.kron import (
     fused_schedule_applicable,
     kron_chain_ref,
@@ -16,8 +21,9 @@ from gp_grief_tpu_torch.ops.cuda.kron import (
     slab_schedule_applicable,
 )
 from gp_grief_tpu_torch.ops.cuda.phi import phi_fused, phi_fused_ref
+from gp_grief_tpu_torch.ops.cuda.stencil import wtw_stencil
 
 __all__ = [
     "phi_fused", "phi_fused_ref", "kron_chain_ref", "kron_matvec_slab", "kron_matvec_fused",
-    "slab_schedule_applicable", "fused_schedule_applicable",
+    "slab_schedule_applicable", "fused_schedule_applicable", "interp_wt", "wtw_stencil",
 ]

@@ -44,6 +44,12 @@ _SIGNATURES = {
     "gp_grief_kron_tile_pass": [_PTR] * 5 + [_INT] * 7 + [_I64, _I64] + [_INT] * 4 + [_PTR],
     # x, out, K, n, o, pre, post, fast, x_bf16, out_bf16, stream
     "gp_grief_kron_wide_pass": [_PTR] * 3 + [_INT] * 2 + [_I64, _I64] + [_INT] * 3 + [_PTR],
+    # uT, src, w, start, end, out, B, M, stream
+    "gp_grief_interp_wt_f32": [_PTR] * 6 + [_INT, _I64, _PTR],
+    "gp_grief_interp_wt_f64": [_PTR] * 6 + [_INT, _I64, _PTR],
+    # v, tables, deltas, D, out, B, M, stream
+    "gp_grief_wtw_stencil_f32": [_PTR] * 3 + [_INT, _PTR, _INT, _I64, _PTR],
+    "gp_grief_wtw_stencil_f64": [_PTR] * 3 + [_INT, _PTR, _INT, _I64, _PTR],
 }
 
 

@@ -1,0 +1,81 @@
+"""Kernel K4: the SKI interpolation transpose ``Wᵀ u`` on the card.
+
+Counterpart of ``gp_grief_tpu.ops.interp.make_onehot_rmatvec`` (the one-hot
+Pallas kernel); the CUDA source is ``csrc/interp_wt.cu``, a deterministic
+segmented sum over the cell-sorted stream of an
+:class:`~gp_grief_tpu_torch.ops.interp.InterpPlan`.  :func:`interp_wt` checks
+its operands and then
+
+* on CPU tensors runs the plain version
+  :func:`~gp_grief_tpu_torch.ops.interp.interp_rmatvec_bm_exact`;
+* on CUDA tensors launches the kernel on the current stream, or raises.  It
+  never falls back to the plain version on the card.
+
+``interp_wt.launches`` counts kernel launches and nothing else.  The backward
+pass is ``W`` applied to the cotangent (the fused gather
+:func:`~gp_grief_tpu_torch.ops.interp.interp_matvec_bm_fast`), as in the JAX
+package's custom VJP.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gp_grief_tpu_torch.ops.interp import InterpPlan, interp_matvec_bm_fast, interp_rmatvec_bm_exact
+
+__all__ = ["interp_wt"]
+
+_SYMBOLS = {torch.float32: "gp_grief_interp_wt_f32", torch.float64: "gp_grief_interp_wt_f64"}
+
+
+def _launch(plan: InterpPlan, u: torch.Tensor) -> torch.Tensor:
+    if u.dtype not in _SYMBOLS:
+        raise TypeError(f"interp_wt kernel takes float32 or float64, got {u.dtype}")
+    if plan.w_sorted.dtype != u.dtype:
+        raise TypeError(f"interp_wt: plan weights are {plan.w_sorted.dtype}, u is {u.dtype}")
+    B, n = int(u.shape[0]), int(u.shape[1])
+    M = plan.M
+    out = torch.empty((B, M), dtype=u.dtype, device=u.device)
+    if out.numel() == 0:
+        return out
+    from gp_grief_tpu_torch.ops.cuda._build import load_library
+
+    fn = getattr(load_library(), _SYMBOLS[u.dtype])
+    # Point-major (n, B): the B values one stream entry gathers are adjacent.
+    uT = u.T.contiguous()
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        err = fn(uT.data_ptr(), plan.src_col.data_ptr(), plan.w_sorted.data_ptr(), plan.start_ptr.data_ptr(),
+                 plan.end_ptr.data_ptr(), out.data_ptr(), B, M, stream)
+    if err != 0:
+        raise RuntimeError(f"interp_wt kernel launch failed with cudaError {err} at (B, n, M) = {(B, n, M)}")
+    interp_wt.launches += 1
+    return out
+
+
+class _InterpWt(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, plan, u):
+        ctx.plan = plan
+        if u.device.type == "cuda":
+            return _launch(plan, u)
+        if u.device.type == "cpu":
+            return interp_rmatvec_bm_exact(plan, u)
+        raise ValueError(f"interp_wt: no kernel for device {u.device}")
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, interp_matvec_bm_fast(ctx.plan, g)
+
+
+def interp_wt(plan: InterpPlan, u_bm: torch.Tensor) -> torch.Tensor:
+    """``Wᵀ u`` for batch-major ``u_bm`` ``(B, n)`` → ``(B, M)``, ``W`` the
+    interpolation matrix of ``plan``.  Differentiable in ``u_bm``."""
+    if u_bm.ndim != 2 or int(u_bm.shape[1]) != plan.n:
+        raise ValueError(f"interp_wt: u must be (B, {plan.n}), got {tuple(u_bm.shape)}")
+    if plan.src_col.device != u_bm.device:
+        raise ValueError(f"interp_wt: plan on {plan.src_col.device}, u on {u_bm.device}")
+    return _InterpWt.apply(plan, u_bm)
+
+
+interp_wt.launches = 0

@@ -17,9 +17,11 @@ from typing import Sequence, Tuple
 
 import torch
 
-__all__ = ["group_factors", "kron_matvec_fast"]
+__all__ = ["group_factors", "kernel_route", "kron_matvec_fast"]
 
 PRECISIONS = ("highest", "default")
+# The JAX package's lax.DotAlgorithmPreset.BF16_BF16_F32_X3, by name.
+X3 = "BF16_BF16_F32_X3"
 
 
 def _kron2(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -65,15 +67,53 @@ def _normalize_precision(precision) -> str:
         p = precision.lower()
         if p in PRECISIONS:
             return p
-        if p == "bf16_bf16_f32_x3":
-            raise NotImplementedError(
-                "the BF16_BF16_F32_X3 preset serves SKI, which is not ported yet"
-            )
-    raise ValueError(f"precision must be one of {PRECISIONS} (or None for 'default'), got {precision!r}")
+        if p == X3.lower():
+            return X3
+    raise ValueError(
+        f"precision must be one of {PRECISIONS}, {X3!r} (or None for 'default'), got {precision!r}"
+    )
 
 
 def _bf16_operands(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).to(t.dtype) if t.dtype == torch.float32 else t
+
+
+def kernel_route(factors: Sequence[torch.Tensor], B: int, precision="highest", *, vector_dtype=torch.float32,
+                 impl: str = "auto") -> str:
+    """Where :func:`kron_matvec_fast` sends ``(⊗K_d)·V`` (``V`` ``(M, B)``)
+    for tensors on the card: ``"slab"`` (K2), ``"fused"`` (K3) or
+    ``"chain"``.  The JAX package's dispatch (``gp_grief_tpu/ops/
+    kron_fast.py:135-212``) with "on a TPU" read as "on the card":
+    slab-applicable shapes at "default" or X3 take the slab; otherwise shapes
+    in the fused schedule's class (its fast class at "default" or for a bf16
+    vector) take the fused schedule.  The kernels need float32 factors and a
+    float32/bfloat16 vector; ``vector_dtype=None`` stands for a vector off the
+    card (always the chain).  Raises where ``impl`` forces a kernel that does
+    not apply."""
+    from gp_grief_tpu_torch.ops.cuda.kron import fused_schedule_applicable, slab_schedule_applicable
+
+    precision = _normalize_precision(precision)
+    kernels_ok = vector_dtype in (torch.float32, torch.bfloat16) and all(K.dtype == torch.float32 for K in factors)
+    applicable = kernels_ok and slab_schedule_applicable(factors, B)
+    if impl == "slab" and not applicable:
+        raise ValueError(
+            "kron_matvec_fast(impl='slab') needs CUDA float32/bfloat16 tensors and slab_schedule_applicable shapes"
+        )
+    if applicable and precision in ("default", X3):
+        return "slab"
+    fast_point = precision == "default" or vector_dtype == torch.bfloat16
+    fused_ok = (
+        impl in ("auto", "fused")
+        and not applicable
+        and kernels_ok
+        and fused_schedule_applicable(factors, B, fast=fast_point, feasible_only=impl == "fused")
+    )
+    if impl == "fused" and not fused_ok:
+        raise ValueError(
+            "kron_matvec_fast(impl='fused') needs CUDA float32/bfloat16 tensors and a "
+            "feasible fused plan (with the slab schedule inapplicable)"
+        )
+    return "fused" if fused_ok else "chain"
 
 
 def kron_matvec_fast(
@@ -99,10 +139,15 @@ def kron_matvec_fast(
       passes of width ≥ 128 round their operands to bf16.  This is the
       operating point of the refined-CG inner loop.
 
+    - ``"BF16_BF16_F32_X3"`` (the JAX package's ``DotAlgorithmPreset``, the
+      SKI lattice dual's Q/Qᵀ applies): on CUDA, slab-applicable shapes run
+      K2 at ``"highest"``; slab-rejected shapes in the fused schedule's class
+      run K3 at ``"highest"``; every other shape runs the chain at full f32.
+      (The JAX package upgrades X3 the same way on a TPU.)
+
     A bfloat16 ``v`` (the mixed16 CG state) takes the fast grade wherever a
-    kernel runs.  The JAX package's ``BF16_BF16_F32_X3`` preset (SKI) raises
-    ``NotImplementedError``.  The kernels take float32 or bfloat16 vectors
-    with float32 factors; float64 always runs the chain.
+    kernel runs.  The kernels take float32 or bfloat16 vectors with float32
+    factors; float64 always runs the chain.
 
     ``impl``: ``"auto"`` (as above), ``"xla"`` (force the chain; the name is
     the JAX package's), ``"slab"`` / ``"fused"`` (force K2 / K3; raise where
@@ -116,43 +161,18 @@ def kron_matvec_fast(
         v = v[:, None]
     B = int(v.shape[1])
     if impl != "xla":
-        from gp_grief_tpu_torch.ops.cuda.kron import (
-            fused_schedule_applicable,
-            kron_matvec_fused,
-            kron_matvec_slab,
-            slab_schedule_applicable,
-        )
+        route = kernel_route(factors, B, precision, vector_dtype=v.dtype if v.is_cuda else None, impl=impl)
+        if route != "chain":
+            from gp_grief_tpu_torch.ops.cuda.kron import kron_matvec_fused, kron_matvec_slab
 
-        # "The backend is a TPU" in the JAX package; here the kernels also
-        # need float32 factors and a float32/bfloat16 vector.
-        on_card = (
-            v.is_cuda
-            and v.dtype in (torch.float32, torch.bfloat16)
-            and all(K.dtype == torch.float32 for K in factors)
-        )
-        applicable = on_card and slab_schedule_applicable(factors, B)
-        if impl == "slab" and not applicable:
-            raise ValueError(
-                "kron_matvec_fast(impl='slab') needs CUDA float32/bfloat16 tensors and "
-                "slab_schedule_applicable shapes"
-            )
-        if applicable and precision == "default":
-            out = kron_matvec_slab(factors, v, precision="default", mid_dtype=torch.bfloat16)
-            return out[:, 0] if squeeze else out
-        fast_point = precision == "default" or v.dtype == torch.bfloat16
-        fused_ok = (
-            impl in ("auto", "fused")
-            and not applicable
-            and on_card
-            and fused_schedule_applicable(factors, B, fast=fast_point, feasible_only=impl == "fused")
-        )
-        if impl == "fused" and not fused_ok:
-            raise ValueError(
-                "kron_matvec_fast(impl='fused') needs CUDA float32/bfloat16 tensors and a "
-                "feasible fused plan (with the slab schedule inapplicable)"
-            )
-        if fused_ok:
-            out = kron_matvec_fused(factors, v, precision=precision)
+            fast = precision == "default"
+            if route == "slab":
+                # At "default" the passes store bf16 between them (the next
+                # pass rounds its operand to bf16 anyway); X3 runs exact f32.
+                out = kron_matvec_slab(factors, v, precision="default" if fast else "highest",
+                                       mid_dtype=torch.bfloat16 if fast else None)
+            else:
+                out = kron_matvec_fused(factors, v, precision="default" if fast else "highest")
             return out[:, 0] if squeeze else out
     gf = group_factors(factors, target_width=target_width)
     rows = math.prod(int(K.shape[0]) for K in gf)

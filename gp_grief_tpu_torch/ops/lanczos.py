@@ -1,0 +1,185 @@
+"""Lanczos tridiagonalization and stochastic Lanczos quadrature (SLQ) log-det.
+
+Counterpart of ``gp_grief_tpu.ops.lanczos`` (``lanczos``,
+``lanczos_batched``, ``_slq_quadrature``, ``slq_logdet``).  The recurrences
+are Python loops of a fixed length with the JAX package's masked arithmetic
+(breakdown freezes a recurrence without a host branch), so nothing reads the
+device until the quadrature's result.  The probe-chunked and
+iteration-segmented loops of the JAX package exist for a TPU runtime's
+per-program time limit and have no counterpart here.
+
+Probes are Rademacher vectors drawn by :func:`rademacher`, the one draw
+function of the package, from an explicit ``torch.Generator``.  ``jax.random``
+and torch draw different bits, so a parity run replaces this function (tests
+monkeypatch it with NumPy draws that the JAX side is handed as well).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from gp_grief_tpu_torch.ops.cg import _reducers
+
+__all__ = ["LanczosResult", "lanczos", "lanczos_batched", "rademacher", "slq_logdet"]
+
+
+class LanczosResult(NamedTuple):
+    Q: Optional[torch.Tensor]  # (m, k) orthonormal basis, or None if not stored
+    alpha: torch.Tensor  # (k,) tridiagonal diagonal (zero-padded past breakdown)
+    beta: torch.Tensor  # (k-1,) tridiagonal off-diagonal (zero-padded)
+    num_valid: torch.Tensor  # scalar: valid alpha entries before breakdown
+
+
+def rademacher(shape, *, dtype, device, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """±1 entries of ``shape`` with equal probability, from ``generator``
+    (on ``device``).  Every probe of the package is drawn here."""
+    bits = torch.randint(0, 2, tuple(shape), generator=generator, device=device)
+    return (2 * bits - 1).to(dtype)
+
+
+def lanczos(
+    matvec: Callable[[torch.Tensor], torch.Tensor],
+    v0: torch.Tensor,
+    k: int,
+    *,
+    full_reorth: bool = True,
+    store_basis: bool = True,
+) -> LanczosResult:
+    """Run ``k`` Lanczos steps of a symmetric operator from ``v0`` ``(m,)``;
+    ``matvec`` maps ``(m, 1) → (m, 1)``.
+
+    Produces ``T = tridiag(beta, alpha, beta)`` with ``Qᵀ A Q = T`` and
+    (optionally) the orthonormal basis ``Q``.  Breakdown is masked: steps past
+    it give zero columns and zero ``alpha``/``beta``, and ``num_valid`` counts
+    the usable steps.  ``full_reorth`` (two passes against the stored basis)
+    requires ``store_basis``.
+    """
+    if full_reorth and not store_basis:
+        raise ValueError("full_reorth requires store_basis=True")
+    m = v0.shape[0]
+    dtype, device = v0.dtype, v0.device
+    eps = torch.finfo(dtype).eps
+    q = v0 / torch.sqrt(torch.sum(v0 * v0))
+    q_prev = torch.zeros_like(q)
+    beta_prev = torch.zeros((), dtype=dtype, device=device)
+    alive = torch.ones((), dtype=torch.bool, device=device)
+    Qbuf = torch.zeros((m, k), dtype=dtype, device=device) if store_basis else None
+    alphas, betas, alives = [], [], []
+    for i in range(k):
+        if store_basis:
+            Qbuf[:, i] = torch.where(alive, q, torch.zeros_like(q))
+        w = matvec(q[:, None])[:, 0]
+        alpha_i = torch.sum(w * q)
+        w = w - alpha_i * q - beta_prev * q_prev
+        if full_reorth:
+            # Orthogonalize against every stored vector (zeros beyond i are
+            # inert); twice is enough (Parlett).
+            for _ in range(2):
+                w = w - Qbuf @ (Qbuf.T @ w)
+        beta_i = torch.sqrt(torch.sum(w * w))
+        scale = torch.abs(alpha_i) + beta_prev + 1.0
+        broke = beta_i <= 100 * eps * scale
+        q_next = torch.where(broke, torch.zeros_like(w), w / torch.where(beta_i == 0, torch.ones_like(beta_i), beta_i))
+        alpha_out = torch.where(alive, alpha_i, torch.zeros_like(alpha_i))
+        beta_out = torch.where(alive & ~broke, beta_i, torch.zeros_like(beta_i))
+        alphas.append(alpha_out)
+        betas.append(beta_out)
+        alives.append(alive)
+        q_prev, q, beta_prev, alive = q, q_next, beta_out, alive & ~broke
+    return LanczosResult(
+        Q=Qbuf,
+        alpha=torch.stack(alphas),
+        beta=torch.stack(betas)[:-1],
+        num_valid=torch.sum(torch.stack(alives).to(torch.int64)),
+    )
+
+
+def lanczos_batched(matvec, V0: torch.Tensor, k: int, *, layout: str = "col"):
+    """``R`` independent Lanczos recurrences sharing each batched matvec.
+
+    ``V0``: ``(m, R)`` start vectors (``layout="col"``) or ``(R, m)``
+    (``layout="bm"``, each row a recurrence); ``matvec`` maps the block to a
+    block of the same layout.  No reorthogonalization.  Returns
+    ``(alphas (k, R), betas (k-1, R), num_valid (R,))``.
+    """
+    if layout not in ("col", "bm"):
+        raise ValueError("layout must be 'col' or 'bm'")
+    _colsum, _colnorm, _bc = _reducers(layout)
+    dtype = V0.dtype
+    eps = torch.finfo(dtype).eps
+    R = V0.shape[1] if layout == "col" else V0.shape[0]
+    q = V0 / _bc(_colnorm(V0))
+    q_prev = torch.zeros_like(q)
+    beta_prev = torch.zeros((R,), dtype=dtype, device=V0.device)
+    alive = torch.ones((R,), dtype=torch.bool, device=V0.device)
+    alphas, betas, alives = [], [], []
+    for _ in range(k):
+        w = matvec(q)
+        alpha_i = _colsum(w * q)
+        w = w - _bc(alpha_i) * q - _bc(beta_prev) * q_prev
+        beta_i = _colnorm(w)
+        scale = torch.abs(alpha_i) + beta_prev + 1.0
+        broke = beta_i <= 100 * eps * scale
+        q_next = torch.where(_bc(broke), torch.zeros_like(w),
+                             w / _bc(torch.where(beta_i == 0, torch.ones_like(beta_i), beta_i)))
+        alpha_out = torch.where(alive, alpha_i, torch.zeros_like(alpha_i))
+        beta_out = torch.where(alive & ~broke, beta_i, torch.zeros_like(beta_i))
+        alphas.append(alpha_out)
+        betas.append(beta_out)
+        alives.append(alive)
+        q_prev, q, beta_prev, alive = q, q_next, beta_out, alive & ~broke
+    return torch.stack(alphas), torch.stack(betas)[:-1], torch.sum(torch.stack(alives).to(torch.int64), dim=0)
+
+
+def _slq_quadrature(alpha: torch.Tensor, beta: torch.Tensor, num_valid: torch.Tensor, k: int) -> torch.Tensor:
+    """Gauss-quadrature values ``Σ_j τ_j² log θ_j`` of a batch of
+    tridiagonals: ``alpha (R, k)``, ``beta (R, k-1)``, ``num_valid (R,)`` →
+    ``(R,)``.  The dead (post-breakdown) block gets a unit diagonal, so its
+    eigenpairs sit at θ = 1 where log θ = 0."""
+    T = torch.diag_embed(alpha) + torch.diag_embed(beta, 1) + torch.diag_embed(beta, -1)
+    live = torch.arange(k, device=alpha.device)[None, :] < num_valid[:, None]  # (R, k)
+    T = torch.where(live[:, :, None] & live[:, None, :], T, torch.zeros_like(T))
+    T = T + torch.diag_embed(torch.where(live, torch.zeros_like(alpha), torch.ones_like(alpha)))
+    theta, V = torch.linalg.eigh(T)
+    tau = V[:, 0, :]
+    theta_safe = torch.where(theta > 0, theta, torch.ones_like(theta))
+    return torch.sum(tau * tau * torch.log(theta_safe), dim=-1)
+
+
+def slq_logdet(
+    matvec: Callable[[torch.Tensor], torch.Tensor],
+    m: int,
+    *,
+    generator: Optional[torch.Generator],
+    num_probes: int = 32,
+    lanczos_iters: int = 64,
+    dtype=torch.float32,
+    device=None,
+    full_reorth: bool = False,
+    layout: str = "col",
+) -> torch.Tensor:
+    """Estimate ``log|A|`` for symmetric PD ``A`` by stochastic Lanczos
+    quadrature: ``(1/R) Σ_r ‖z_r‖² Σ_j τ_j² log θ_j`` over Rademacher probes
+    ``z_r`` (one :func:`rademacher` draw of ``(m, R)``, or ``(R, m)`` with
+    ``layout="bm"``), each through ``lanczos_iters`` Lanczos steps, all
+    probes batched through one matvec per step.  ``full_reorth`` runs one
+    reorthogonalized recurrence per probe (small-``m`` accuracy checks; not
+    with ``layout="bm"``)."""
+    if layout == "bm" and full_reorth:
+        raise ValueError("layout='bm' does not support full_reorth")
+    k = int(lanczos_iters)
+    if full_reorth:
+        z = rademacher((num_probes, m), dtype=dtype, device=device, generator=generator)
+        vals = []
+        for zz in z:
+            res = lanczos(matvec, zz, k, full_reorth=True, store_basis=True)
+            q = _slq_quadrature(res.alpha[None], res.beta[None], res.num_valid[None], k)[0]
+            vals.append(torch.sum(zz * zz) * q)
+        return torch.mean(torch.stack(vals))
+    shape = (m, num_probes) if layout == "col" else (num_probes, m)
+    Z = rademacher(shape, dtype=dtype, device=device, generator=generator)
+    alphas, betas, num_valid = lanczos_batched(matvec, Z, k, layout=layout)
+    znorm2 = torch.sum(Z * Z, dim=0 if layout == "col" else 1)
+    return torch.mean(znorm2 * _slq_quadrature(alphas.T, betas.T, num_valid, k))

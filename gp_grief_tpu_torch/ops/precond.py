@@ -10,8 +10,9 @@ functions
 applied with two Kronecker matvecs (``⊗Q_dᵀ`` then ``⊗Q_d``, both through
 :func:`~gp_grief_tpu_torch.ops.kron_fast.kron_matvec_fast` at full precision)
 and a p-entry gather/scatter on the eigen-lattice; ``Q_p`` is never formed.
-The low-rank and pivoted-Cholesky preconditioners come with the matrix-free
-exact GP.
+The low-rank preconditioner of SKI's data-space solver (an explicit skinny
+basis ``U``; :func:`lowrank_spectral_factor`, :func:`lowrank_sqrt_ops`) is
+here too; the pivoted-Cholesky one comes with the matrix-free exact GP.
 """
 
 from __future__ import annotations
@@ -22,8 +23,12 @@ from typing import Callable, Sequence
 import torch
 
 from gp_grief_tpu_torch.ops.kron_fast import kron_matvec_fast
+from gp_grief_tpu_torch.ops.solve import solve_chol, stable_cholesky
 
-__all__ = ["kron_deflation_preconditioner", "kron_deflation_sqrt_ops"]
+__all__ = [
+    "kron_deflation_preconditioner", "kron_deflation_sqrt_ops", "lowrank_preconditioner",
+    "lowrank_spectral_factor", "lowrank_sqrt_ops", "lowrank_sqrt_ops_from_factor",
+]
 
 
 def kron_deflation_preconditioner(
@@ -78,3 +83,88 @@ def kron_deflation_sqrt_ops(
 
     logdet_M = torch.sum(torch.log(lam_p + sigma2)) + (m - p) * torch.log(sigma2)
     return _apply(lambda s: 1.0 / s), _apply(lambda s: 1.0 / torch.sqrt(s)), logdet_M
+
+
+def lowrank_sqrt_ops(U: torch.Tensor, lam: torch.Tensor, sigma2, *, layout: str = "col"):
+    """Closed-form ``(M_inv, M_inv_sqrt, logdet_M)`` of ``M = U diag(λ) Uᵀ +
+    σ²I`` for ORTHONORMAL skinny ``U (n, r)``: every function of ``M`` acts
+    as ``f(M) = f(σ²)·I + U (f(λ+σ²) − f(σ²)) Uᵀ``.  ``M_inv_sqrt`` whitens
+    CG and SLQ (``log|A| = log|M| + log|M⁻½AM⁻½|``).  ``layout="bm"``: the
+    operators map ``(B, n)`` rows instead of ``(n,)``/``(n, B)`` columns.
+    The products run in full precision (TF32 off on the card)."""
+    if layout not in ("col", "bm"):
+        raise ValueError("layout must be 'col' or 'bm'")
+    sigma2 = torch.as_tensor(sigma2, dtype=lam.dtype, device=lam.device)
+    lam_shift = lam + sigma2
+
+    def _apply(diag_fun):
+        base = diag_fun(sigma2)
+        delta = diag_fun(lam_shift) - base  # (r,)
+
+        def op(v: torch.Tensor) -> torch.Tensor:
+            if layout == "bm":
+                return base * v + (v @ U * delta[None, :]) @ U.T
+            squeeze = v.ndim == 1
+            vv = v[:, None] if squeeze else v
+            out = base * vv + U @ (delta[:, None] * (U.T @ vv))
+            return out[:, 0] if squeeze else out
+
+        return op
+
+    n = U.shape[0]
+    logdet_M = torch.sum(torch.log(lam_shift)) + (n - lam.shape[0]) * torch.log(sigma2)
+    return _apply(lambda s: 1.0 / s), _apply(lambda s: 1.0 / torch.sqrt(s)), logdet_M
+
+
+def lowrank_preconditioner(U: torch.Tensor, lam: torch.Tensor, sigma2) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Woodbury inverse of ``M = U diag(λ) Uᵀ + σ²I`` for skinny ``U (n, k)``
+    and positive ``λ``: ``M⁻¹v = (v − U C⁻¹ Uᵀ v)/σ²`` with
+    ``C = σ² diag(1/λ) + UᵀU``."""
+    C = sigma2 * torch.diag(1.0 / lam) + U.T @ U
+    L = torch.linalg.cholesky(C)
+
+    def M_inv(v: torch.Tensor) -> torch.Tensor:
+        squeeze = v.ndim == 1
+        vv = v[:, None] if squeeze else v
+        out = (vv - U @ solve_chol(L, U.T @ vv)) / sigma2
+        return out[:, 0] if squeeze else out
+
+    return M_inv
+
+
+def lowrank_spectral_factor(F: torch.Tensor, *, weights: torch.Tensor | None = None, top_r: int | None = None):
+    """Spectral form of ``F diag(w) Fᵀ`` robust in float32: ``(U, lam)`` with
+    ORTHONORMAL ``U (n, r)`` and ``lam ≥ 0`` (ascending) such that
+    ``F diag(w) Fᵀ = U diag(lam) Uᵀ``.
+
+    ``F`` is orthonormalized first (CholeskyQR, twice: the CholeskyQR2
+    pattern), then the r×r congruence ``LᵀWL`` is eigendecomposed, which only
+    needs absolute ``eps·λ₁`` accuracy; a one-shot eigh of the weighted Gram
+    loses positive-definiteness in float32 (the JAX package's measurement).
+    ``top_r`` keeps the ``top_r`` largest eigenpairs (the trailing columns).
+    """
+    Ut = F
+    Ls = []
+    for _ in range(2):
+        L, _ = stable_cholesky(Ut.T @ Ut)
+        Ut = torch.linalg.solve_triangular(L.T, Ut, upper=True, left=False)  # Ut ← Ut·L⁻ᵀ
+        Ls.append(L)
+    # F = Ut·(L2ᵀL1ᵀ)  ⇒  F W Fᵀ = Ut (L2ᵀL1ᵀ W L1L2) Utᵀ.
+    mid = Ls[1].T @ Ls[0].T
+    if weights is not None:
+        mid = mid * torch.sqrt(weights)[None, :]
+    s, V = torch.linalg.eigh(mid @ mid.T)
+    lam = torch.clamp_min(s, 0.0)
+    if top_r is not None:
+        r = max(0, int(min(top_r, lam.shape[0])))
+        k = lam.shape[0] - r
+        V, lam = V[:, k:], lam[k:]
+    return Ut @ V, lam
+
+
+def lowrank_sqrt_ops_from_factor(F: torch.Tensor, sigma2, *, weights: torch.Tensor | None = None,
+                                 layout: str = "col"):
+    """:func:`lowrank_sqrt_ops` of ``M = F diag(w) Fᵀ + σ²I`` from a raw
+    (non-orthonormal) skinny factor, through :func:`lowrank_spectral_factor`."""
+    U, lam = lowrank_spectral_factor(F, weights=weights)
+    return lowrank_sqrt_ops(U, lam, sigma2, layout=layout)

@@ -22,9 +22,12 @@ import torch
 __all__ = ["top_p_kron_eigs"]
 
 
-def _top(vals: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    s, i = torch.sort(vals, descending=True, stable=True)
-    return s[:k], i[:k]
+def _top(vals: torch.Tensor, k: int, quantum=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    if quantum is None:
+        s, i = torch.sort(vals, descending=True, stable=True)
+        return s[:k], i[:k]
+    i = torch.sort(torch.round(vals / quantum), descending=True, stable=True).indices[:k]
+    return vals[i], i
 
 
 def top_p_kron_eigs(
@@ -32,11 +35,18 @@ def top_p_kron_eigs(
     p: int,
     *,
     min_eig: float | None = None,
+    tie_quantum: float | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Select the ``p`` largest Kronecker eigenvalue products in log-space.
 
     Returns ``(log_lam, idx)``: ``log_lam`` ``(p,)`` descending, and ``idx``
     ``(p, d)`` int64 per-dimension eigenvalue indices of each product.
+
+    ``tie_quantum`` (the port's addition; SKI's deflation uses it) orders the
+    log-sums by their value rounded to that quantum, ties by index.  Equal
+    kernels on equal grids make groups of exactly tied products, and a
+    selection that cuts through one would otherwise keep the members whose
+    sums happen to round highest, which differs between eigensolvers.
     """
     d = len(lams)
     dtype = functools.reduce(torch.promote_types, [lam.dtype for lam in lams])
@@ -46,7 +56,7 @@ def top_p_kron_eigs(
 
     log0 = torch.log(torch.clamp(lams[0].to(dtype), min=min_eig))
     k0 = min(p, int(log0.shape[0]))
-    vals, i0 = _top(log0, k0)
+    vals, i0 = _top(log0, k0, tie_quantum)
     sums = torch.cat([vals, torch.full((p - k0,), -torch.inf, dtype=dtype, device=device)])
     idx = torch.zeros((p, d), dtype=torch.int64, device=device)
     idx[:k0, 0] = i0
@@ -56,7 +66,7 @@ def top_p_kron_eigs(
         m_d = int(log_d.shape[0])
         # -inf prefixes (lattice smaller than p) stay -inf and sort last.
         flat = (sums[:, None] + log_d[None, :]).reshape(-1)
-        sums, flat_i = _top(flat, p)
+        sums, flat_i = _top(flat, p, tie_quantum)
         idx = idx[flat_i // m_d]
         idx[:, dd] = flat_i % m_d
     return sums, idx

@@ -1,0 +1,182 @@
+"""Kernels K4 (interp_wt) and K5 (wtw_stencil) on the card, and SKI's
+operators through them.
+
+Marked ``cuda``; without a CUDA device every test skips.  On a GPU machine
+without jax run ``python -m pytest --noconftest tests/test_torch_interp_cuda.py``
+(``tests/conftest.py`` imports jax; this file does not).  Tolerances: float32
+against the plain version 1e-6 of the output scale (both sum the same short
+products, in another order and with fused multiply-adds); float64 1e-12.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import gp_grief_tpu_torch as gpt
+from gp_grief_tpu_torch.ops import interp as tint
+from gp_grief_tpu_torch.ops import interp_stencil as tst
+from gp_grief_tpu_torch.ops.cuda import _build, interp_wt, kron as tk, wtw_stencil
+from gp_grief_tpu_torch.ops.kron_fast import kernel_route, kron_matvec_fast
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: 1e-6, torch.float64: 1e-12}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _geometry(shape, n, seed=0):
+    rng = np.random.default_rng(seed)
+    xg = [np.sort(rng.uniform(0, 1, m)) for m in shape]
+    x = rng.uniform(-0.1, 1.1, size=(n, len(shape)))
+    return tint.interp_weights(x, xg)
+
+
+CASES = [((7, 5, 6), 400), ((12, 9, 10), 5000), ((32, 32, 32), 3000), ((16, 16, 16, 16), 20000)]
+
+
+def _rel(got, ref):
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-300))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,n", CASES)
+def test_interp_wt_matches_plain_version_and_repeats_bits(cuda, shape, n, dtype):
+    iw = _geometry(shape, n)
+    plan = tint.build_interp_plan(iw, dtype=dtype, device=cuda)
+    u = torch.randn((9, n), generator=torch.Generator().manual_seed(1), dtype=torch.float64).to(cuda, dtype)
+    before = interp_wt.launches
+    got = interp_wt(plan, u)
+    again = interp_wt(plan, u)
+    torch.cuda.synchronize()
+    assert interp_wt.launches == before + 2
+    assert got.shape == (9, math.prod(shape)) and torch.equal(got, again)
+    assert _rel(got, tint.interp_rmatvec_bm_exact(plan, u)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,n", CASES)
+def test_wtw_stencil_matches_plain_version_and_repeats_bits(cuda, shape, n, dtype):
+    st = tst.build_wtw_stencil(_geometry(shape, n, seed=2), dtype=dtype, device=cuda)
+    v = torch.randn((20, st.M), generator=torch.Generator().manual_seed(3), dtype=torch.float64).to(cuda, dtype)
+    before = wtw_stencil.launches
+    got = wtw_stencil(st, v)
+    again = wtw_stencil(st, v)
+    torch.cuda.synchronize()
+    assert wtw_stencil.launches == before + 2
+    assert torch.equal(got, again)
+    assert _rel(got, tst.stencil_apply_ref(st, v)) <= TOL[dtype]
+
+
+def test_kernels_differentiate(cuda):
+    iw = _geometry((6, 5, 4), 200)
+    plan = tint.build_interp_plan(iw, dtype=torch.float64, device=cuda)
+    u = torch.randn((3, 200), dtype=torch.float64, device=cuda, requires_grad=True)
+    c = torch.randn((3, 120), dtype=torch.float64, device=cuda)
+    (g,) = torch.autograd.grad(torch.sum(interp_wt(plan, u) * c), u)
+    assert _rel(g, tint.interp_matvec_bm_fast(plan, c)) <= 1e-12
+    st = tst.build_wtw_stencil(iw, dtype=torch.float64, device=cuda)
+    v = torch.randn((2, 120), dtype=torch.float64, device=cuda, requires_grad=True)
+    (g,) = torch.autograd.grad(torch.sum(wtw_stencil(st, v) * c[:2]), v)
+    assert _rel(g, tst.stencil_apply_ref(st, c[:2])) <= 1e-12
+
+
+def test_build_or_launch_failure_raises(cuda, monkeypatch):
+    iw = _geometry((6, 5, 4), 200)
+    plan = tint.build_interp_plan(iw, dtype=torch.float32, device=cuda)
+    st = tst.build_wtw_stencil(iw, dtype=torch.float32, device=cuda)
+    u = torch.zeros((2, 200), device=cuda)
+    v = torch.zeros((2, 120), device=cuda)
+
+    def no_build():
+        raise RuntimeError("nvcc failed with exit code 1")
+
+    monkeypatch.setattr(_build, "load_library", no_build)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        interp_wt(plan, u)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        wtw_stencil(st, v)
+
+    class Refusing:  # every entry point reports cudaErrorInvalidConfiguration
+        def __getattr__(self, name):
+            return lambda *args: 9
+
+    monkeypatch.setattr(_build, "load_library", lambda: Refusing())
+    before = (interp_wt.launches, wtw_stencil.launches)
+    with pytest.raises(RuntimeError, match="cudaError 9"):
+        interp_wt(plan, u)
+    with pytest.raises(RuntimeError, match="cudaError 9"):
+        wtw_stencil(st, v)
+    assert (interp_wt.launches, wtw_stencil.launches) == before
+    with pytest.raises(TypeError, match="float32 or float64"):
+        interp_wt(plan, u.half())
+
+
+def test_leading_identity_batches_route_and_compute(cuda):
+    """SKI folds the batch in as a leading identity factor.  At 32^4 a 9x9
+    identity (1 + 8 probes) fails the slab gate (128 % 9) and the fused gate
+    (a 32-wide last axis), so the chain runs; an 8x8 identity (the SLQ
+    probes) takes K2 at the X3 preset.  K2 computes both correctly when
+    forced."""
+    g = torch.Generator().manual_seed(4)
+    Qs = [torch.linalg.qr(torch.randn((32, 32), generator=g))[0].contiguous().to(cuda) for _ in range(4)]
+    for B, route in ((9, "chain"), (8, "slab")):
+        fs = (torch.eye(B, device=cuda), *Qs)
+        assert kernel_route(fs, 1, "BF16_BF16_F32_X3") == route
+        v = torch.randn((B * 32**4,), generator=g).to(cuda)
+        before = tk.kron_matvec_slab.launches
+        got = kron_matvec_fast(fs, v, precision="BF16_BF16_F32_X3")
+        assert (tk.kron_matvec_slab.launches > before) == (route == "slab")
+        forced = tk.kron_matvec_slab(fs, v, precision="highest")
+        exact = tk.kron_chain_ref([f.double() for f in fs], v.double()[:, None])[:, 0]
+        for out in (got, forced):
+            assert float(torch.linalg.norm(out.double() - exact) / torch.linalg.norm(exact)) < 1e-5
+
+
+@pytest.mark.parametrize("solver", ["data", "lattice"])
+def test_ski_model_on_the_card_matches_the_cpu(cuda, solver):
+    """float64 NLML and predictions of a small SKI model on the card (K4, K5)
+    and on the CPU (their plain versions), on probes drawn on the CPU and
+    copied to the card.  The NLML to 1e-10; predictions to 1e-8 (their CG
+    solves stop at cg_tol = 1e-10, and the two devices' rounding moves the
+    stopping point: 2.2e-9 measured on the lattice solver)."""
+    rng = np.random.default_rng(0)
+    x = rng.uniform(0, 3, (600, 3))
+    y = np.sin(x[:, 0]) * np.cos(x[:, 1]) + 0.3 * x[:, 2] + 0.05 * rng.standard_normal(600)
+    xg = [np.linspace(-0.1, 3.1, m)[:, None] for m in (8, 7, 6)]
+    xs = rng.uniform(0.2, 2.8, (30, 3))
+    kw = dict(noise_var=0.2, num_probes=4, lanczos_iters=15, cg_tol=1e-10, solver=solver, precond_rank=16)
+    kerns = [gpt.make_kernel("rbf", lengthscale=ls) for ls in (0.8, 0.9, 1.1)]
+    import gp_grief_tpu_torch.ops.lanczos as tlz
+
+    draw = tlz.rademacher
+
+    def cpu_draw(shape, *, dtype, device, generator):
+        return draw(shape, dtype=dtype, device="cpu", generator=torch.Generator().manual_seed(7)).to(device)
+
+    tlz.rademacher = cpu_draw
+    try:
+        out = {}
+        for dev in ("cpu", cuda):
+            m = gpt.GPSKIRegression(x, y, kerns, xg, device=dev, **kw)
+            k4, k5 = interp_wt.launches, wtw_stencil.launches
+            ll = m.log_likelihood()
+            if dev != "cpu":
+                assert interp_wt.launches > k4
+                assert (wtw_stencil.launches > k5) == (solver == "lattice")
+            mean, var = m.predict(xs, chunk=8)
+            out[str(dev)] = (ll, mean.cpu().numpy(), var.cpu().numpy())
+    finally:
+        tlz.rademacher = draw
+    (lc, mc, vc), (lg, mg, vg) = out["cpu"], out[str(cuda)]
+    assert lg == pytest.approx(lc, rel=1e-10)
+    np.testing.assert_allclose(mg, mc, rtol=1e-8, atol=1e-12)
+    np.testing.assert_allclose(vg, vc, rtol=1e-8, atol=1e-12)

@@ -146,8 +146,9 @@ def test_kron_matvec_fast_contract():
     for impl in ("slab", "fused"):  # the kernels need CUDA tensors
         with pytest.raises(ValueError, match=impl):
             tfast.kron_matvec_fast(fs, v, impl=impl)
-    with pytest.raises(NotImplementedError, match="SKI"):
-        tfast.kron_matvec_fast(fs, v, precision="BF16_BF16_F32_X3")
+    # The X3 preset (SKI's lattice dual) runs at full f32 off the card.
+    x3 = tfast.kron_matvec_fast(fs, v, precision="BF16_BF16_F32_X3")
+    assert torch.equal(x3, tfast.kron_matvec_fast(fs, v, precision="highest"))
     with pytest.raises(ValueError, match="precision"):
         tfast.kron_matvec_fast(fs, v, precision="fastest")
 

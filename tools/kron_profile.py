@@ -24,23 +24,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as cs  # noqa: E402
 
 
-def _device_items(prof, top=10):
-    """Device kernels only (the CPU-side ops that launched them also report
-    the same device time, and would count it twice)."""
-    rows = []
-    for ev in prof.key_averages():
-        if not str(ev.device_type).endswith("CUDA"):
-            continue
-        dev = getattr(ev, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(ev, "self_cuda_time_total", 0)
-        if dev > 0:
-            rows.append((ev.key, dev / 1e3, ev.count))
-    rows.sort(key=lambda r: -r[1])
-    total = sum(r[1] for r in rows)
-    return total, [{"name": k[:90], "ms": ms, "count": c} for k, ms, c in rows[:top]]
-
-
 def main() -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -66,7 +49,7 @@ def main() -> None:
             for _ in range(10):
                 fn(fs, v, **kw)
             torch.cuda.synchronize()
-        total, items = _device_items(prof)
+        total, items = cs.device_items(prof)
         print(json.dumps({"profile": label, "plan": tk._hopper_plan(list(sizes), list(sizes), 1),
                           "device_ms_per_call": total / 10, "items": items, "card": card}), flush=True)
 
@@ -80,7 +63,7 @@ def main() -> None:
             model.log_likelihood()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        total, items = _device_items(prof)
+        total, items = cs.device_items(prof)
         print(json.dumps({"profile": f"{name} CG log_likelihood", "wall_ms": wall * 1e3, "device_ms": total,
                           "idle_share": 1 - total / (wall * 1e3), "cg_iterations": model.cg_info.iterations,
                           "items": items, "card": card}), flush=True)
