@@ -467,14 +467,31 @@ KRON_SHAPES = [
 KRON_TOL = {"highest": 1e-5, "default": 2e-3}
 
 
-def kron_bound(sizes, B, precision):
-    """Least time for (⊗K_d)·V on an H100 SXM: every input read once, the
-    output written once, against 2·M·B·Σm_d operations at the grade's peak."""
-    M = int(np.prod(sizes))
-    nbytes = 4 * (2 * M * B + sum(m * m for m in sizes))
-    ops = 2.0 * M * B * sum(sizes)
+def kron_bound(sizes, B, precision, outs=None, lead=1):
+    """Least time for (I_lead ⊗ (⊗K_d))·V, factors (o_d, m_d), V (lead·Πm_d,
+    B), float32, on an H100 SXM: the input, the factors and the output moved
+    once, against the operations of the chain (last axis first; 2·M·B·Σm_d for
+    square factors) at the grade's peak.  A single factor is counted as the
+    dense matrix it is (K6's W = I_G ⊗ K)."""
+    outs = list(outs or sizes)
+    nbytes = 4 * (lead * B * (int(np.prod(sizes)) + int(np.prod(outs))) + sum(o * m for o, m in zip(outs, sizes)))
+    ops = 2.0 * lead * B * sum(int(np.prod(sizes[:t])) * outs[t] * sizes[t] * int(np.prod(outs[t + 1 :]))
+                               for t in range(len(sizes)))
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_FLOPS[precision]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def kron_einsum(fs, x):
+    """The library yardstick of K2, K3 and K7: ``(⊗K_d)·x`` for ``x`` ``(M,)``
+    or ``(M, B)`` as one ``torch.einsum`` in float32, shaped ``(o_1, …, o_d[,
+    B])``.  ``x`` comes first, so that even without opt_einsum each factor
+    contracts one axis of it.  Timed only; no path of the port calls it."""
+    import torch
+
+    a, o = "abcdefgh"[: len(fs)], "ijklmnop"[: len(fs)]
+    b = "z" if x.ndim == 2 else ""
+    spec = f"{a}{b}," + ",".join(f"{o[t]}{a[t]}" for t in range(len(fs))) + f"->{o}{b}"
+    return torch.einsum(spec, x.reshape(*(int(f.shape[1]) for f in fs), *x.shape[1:]), *fs)
 
 
 def phase_kron(card: str) -> dict:
@@ -508,12 +525,14 @@ def phase_kron(card: str) -> dict:
                 ms = cuda_ms(lambda: fn(fs, vs[next(it) % nv], **kw))
                 plain_ms = cuda_ms(lambda: tk.kron_chain_ref(fs, vs[next(it) % nv], fast=fast))
                 chain_ms = cuda_ms(lambda: kron_matvec_fast(fs, vs[next(it) % nv], precision=precision, impl="xla"))
+                library_ms = cuda_ms(lambda: kron_einsum(fs, vs[next(it) % nv]))
             bound_ms, bound_by = kron_bound(sizes, B, precision)
             emit({"phase": "kron", "kernel": kname, "shape": label, "sizes": list(sizes), "B": B,
                   "precision": precision, "passes": len(tk._hopper_plan(list(sizes), list(sizes), B)),
                   "rel_err_vs_plain": rel, "tol": KRON_TOL[precision], "rel_err_vs_exact": rel_exact,
                   "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, "chain_ms": chain_ms,
-                  "bound_ms": bound_ms, "bound_by": bound_by, "gb_per_s": 2 * M * B * 4 / (ms * 1e-3) / 1e9,
+                  "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                  "gb_per_s": 2 * M * B * 4 / (ms * 1e-3) / 1e9,
                   "distinct_vectors": nv, "card": card})
             check(rel <= KRON_TOL[precision], f"{kname} {label} {precision}: rel err {rel:.3e} vs plain")
             check(rel_exact <= (2e-2 if fast else 1e-5), f"{kname} {label} {precision}: rel err {rel_exact:.3e} vs exact")
@@ -521,7 +540,8 @@ def phase_kron(card: str) -> dict:
             entry["max_abs_err"] = max(entry["max_abs_err"], abs_err)
             # The line's times: each kernel at its grid configuration's grade.
             if (label, precision) in (("grid32x5", "default"), ("grid8x512x512", "highest")):
-                entry.update(ms=ms, plain_ms=plain_ms, chain_ms=chain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                entry.update(ms=ms, plain_ms=plain_ms, chain_ms=chain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                             bound_by=bound_by)
         del fs, vs
         torch.cuda.empty_cache()
     return summary
@@ -951,6 +971,204 @@ def phase_ski(card: str, name: str, ref64: dict) -> dict:
     return launched
 
 
+# ---------------------------------------------------------------------------
+# Kernels K6-K8 (the per-axis Kronecker passes).  No model of either package
+# launches them; their path is the public entry points at the 32^5 shapes the
+# JAX package's benchmark scripts measured them at, and K7 as the operator of
+# a grid CG (benchmarks/exp_r2_candidates.py's use of kron_matmat_pallas).
+# ---------------------------------------------------------------------------
+
+AXES_D, AXES_M = 5, 32  # the 32^5 headline lattice (BASELINE.json, bench.py)
+# The K7 CG solve at grid32x5_mixed's data and parameters against the float64
+# Schur solve of the same system, relative norm error of the solution: float32
+# CG stops at a relative residual of 1e-6 on κ ≈ 56.  About three times the
+# first measured gap, 5.95e-7 after 46 iterations on an H100 (PERF.md §6).
+K7_CG_RTOL = 1.8e-6
+
+
+def axes_factors():
+    """benchmarks/exp_r2_candidates.py:35-37: five 32x32 factors, standard
+    normal / (2.2·√32) from numpy.random.default_rng(0), float32 on the card."""
+    import torch
+
+    rng = np.random.default_rng(0)
+    return [torch.as_tensor((rng.standard_normal((AXES_M, AXES_M)) / (2.2 * np.sqrt(AXES_M))).astype(np.float32),
+                            device=DEVICE) for _ in range(AXES_D)]
+
+
+def axes_cases():
+    """Phase 10's cases: ``(kernel, label, input shape, precisions, factor
+    shapes (o, m), lead rows, B, run, plain, library, chain)``.  ``run(x,
+    p)`` is the entry point, ``plain(x, fast)`` its plain version (factors
+    cast to x's dtype, so a float64 x gives the float64 reference),
+    ``library(x)`` one float32 PyTorch call of the same function, and
+    ``chain(x)`` the port's torch.matmul chain (K7; None for K6 and K8)."""
+    import torch
+    from gp_grief_tpu_torch.ops.cuda import kron as tk
+    from gp_grief_tpu_torch.ops.cuda import kron_axes as ka
+    from gp_grief_tpu_torch.ops.kron_fast import kron_matvec_fast
+
+    Ks = axes_factors()
+    rng = np.random.default_rng(1)
+    rect = [torch.as_tensor((rng.standard_normal(s) / np.sqrt(s[1])).astype(np.float32), device=DEVICE)
+            for s in ((96, 80), (24, 32), (40, 32))]
+    W = torch.kron(torch.eye(4, device=DEVICE), Ks[-1])  # I_4 ⊗ K_32 (exp_r2_passes_today.py:66-68)
+    Wr = torch.as_tensor((rng.standard_normal((64, 48)) / np.sqrt(48)).astype(np.float32), device=DEVICE)
+    M = AXES_M ** AXES_D
+
+    def like(fs, x):
+        return [f.to(x.dtype) for f in fs]
+
+    def k7(fs, B):
+        shape = (int(np.prod([f.shape[1] for f in fs])),) + ((B,) if B > 1 else ())
+        return ("kron_matmat_cuda", shape, ["highest"], [tuple(f.shape) for f in fs], 1, B,
+                lambda x, p: ka.kron_matmat_cuda(fs, x, precision=p),
+                lambda x, fast: tk.kron_chain_ref(like(fs, x), x.reshape(shape[0], -1), fast=fast).reshape(-1, *shape[1:]),
+                lambda x: kron_einsum(fs, x),
+                lambda x: kron_matvec_fast(fs, x, precision="highest", impl="xla"))
+
+    def k6(Wm, N):
+        return ("last_slab_pass", (N, int(Wm.shape[1])), ["highest"], [tuple(Wm.shape)], N, 1,
+                lambda x, p: ka.last_slab_pass(x, Wm),
+                lambda x, fast: ka.last_slab_pass_ref(x, Wm.to(x.dtype), fast=fast),
+                lambda x: torch.matmul(x, Wm.mT), None)
+
+    def k8(fs, N):
+        g = len(fs)
+        fn, ref = (ka.tail3_pass, ka.tail3_pass_ref) if g == 3 else (ka.tail2_pass, ka.tail2_pass_ref)
+        spec = "nabc,ia,jb,kc->nijk" if g == 3 else "nab,ia,jb->nij"
+        return (fn.__name__, (N,) + (AXES_M,) * g, ["highest", "default"], [tuple(f.shape) for f in fs], N, 1,
+                lambda x, p: fn(x, *fs, precision=p),
+                lambda x, fast: ref(x, *like(fs, x), precision="default" if fast else "highest"),
+                lambda x: torch.einsum(spec, x, *fs), None)
+
+    return [
+        ("grid32x5_B1", *k7(Ks, 1)),  # exp_r2_candidates.py:34-40,80
+        ("grid32x5_B8", *k7(Ks, 8)),  # the SLQ probe batch
+        ("rect_96x80_24x32_40x32_B8", *k7(rect, 8)),
+        ("grid32x5_slab128", *k6(W, M // int(W.shape[1]))),  # exp_r2_passes_today.py:66-68
+        ("odd_N_64x48", *k6(Wr, M // 48 | 1)),  # no power-of-two row block: the JAX package's XLA fallback
+        ("grid32x5_tail3", *k8(Ks[2:], M // AXES_M**3)),  # exp_r2_slab_fix.py:71-83
+        ("grid32x5_tail2", *k8(Ks[3:], M // AXES_M**2)),  # exp_r2_slab_fix.py:85-99
+    ]
+
+
+def phase_kron_axes(card: str) -> dict:
+    """K6, K7 and K8 against their plain versions (float32, and a float64 run
+    of the plain version), two launches bit-identical; CUDA-event times of the
+    kernel, the plain version, the library call and (K7) the chain, beside
+    the bound."""
+    import torch
+    from gp_grief_tpu_torch.ops.cuda import kron as tk
+
+    summary = {}
+    for label, kname, shape, precisions, fshapes, lead, B, run, plain, library, chain in axes_cases():
+        n_in = int(np.prod(shape))
+        # Several distinct inputs, cycled, so a small one is not timed from L2.
+        nv = max(1, -(-(128 << 20) // (4 * n_in)))
+        g = torch.Generator(device=DEVICE).manual_seed(0)
+        xs = [torch.randn(shape, generator=g, device=DEVICE) for _ in range(nv)]
+        sizes, outs = [s[1] for s in fshapes], [s[0] for s in fshapes]
+        plan = [(0, 0, 0)] if kname == "last_slab_pass" else tk._hopper_plan(sizes, outs, B)
+        for precision in precisions:
+            fast = precision == "default"
+            with torch.no_grad():
+                got = run(xs[0], precision)
+                again = run(xs[0], precision)
+                torch.cuda.synchronize()
+                ref = plain(xs[0], fast)
+                exact = plain(xs[0].double(), False)
+                # The library call is float32 at both grades: held to float64.
+                lib_rel = float(torch.linalg.norm(library(xs[0]).double().reshape(exact.shape) - exact)
+                                / torch.linalg.norm(exact))
+                rel = float(torch.linalg.norm((got - ref).double()) / torch.linalg.norm(ref.double()))
+                rel_exact = float(torch.linalg.norm(got.double() - exact) / torch.linalg.norm(exact))
+                abs_err = float((got - ref).abs().max())
+                identical = bool(torch.equal(got, again))
+                finite = got.shape == ref.shape and bool(torch.isfinite(got).all())
+                n_out = got.numel()
+                del got, again, ref, exact
+                it = iter(range(1 << 30))
+                ms = cuda_ms(lambda: run(xs[next(it) % nv], precision))
+                plain_ms = cuda_ms(lambda: plain(xs[next(it) % nv], fast))
+                lib_ms = cuda_ms(lambda: library(xs[next(it) % nv]))
+                chain_ms = cuda_ms(lambda: chain(xs[next(it) % nv])) if chain else None
+            bound_ms, bound_by = kron_bound(sizes, B, precision, outs=outs, lead=lead)
+            chained = {"chain_ms": chain_ms} if chain else {}
+            emit({"phase": "kron_axes", "kernel": kname, "shape": label, "input": list(shape), "factors": fshapes,
+                  "precision": precision, "passes": len(plan), "rel_err_vs_plain": rel, "tol": KRON_TOL[precision],
+                  "rel_err_vs_f64": rel_exact, "f64_tol": 2e-2 if fast else 1e-5, "max_abs_err": abs_err,
+                  "two_launches_identical": identical, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                  "library_rel_err_vs_f64": lib_rel, **chained, "bound_ms": bound_ms, "bound_by": bound_by,
+                  "gb_per_s": 4 * (n_in + n_out) / (ms * 1e-3) / 1e9, "distinct_inputs": nv, "card": card})
+            check(finite, f"{kname} {label} {precision}: bad output")
+            check(rel <= KRON_TOL[precision], f"{kname} {label} {precision}: rel err {rel:.3e} vs plain")
+            check(rel_exact <= (2e-2 if fast else 1e-5), f"{kname} {label} {precision}: rel err {rel_exact:.3e} vs f64")
+            check(identical, f"{kname} {label} {precision}: two launches differ")
+            check(lib_rel <= 1e-5, f"{kname} {label}: the library call is off float64 by {lib_rel:.3e}")
+            entry = summary.setdefault(kname, {"max_abs_err": 0.0})
+            entry["max_abs_err"] = max(entry["max_abs_err"], abs_err)
+            # The line's times: each kernel's first 32^5 case at the exact grade.
+            if precision == "highest" and "ms" not in entry:
+                entry.update({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                              "shape": label, "library_ms": lib_ms, **chained})
+        del xs
+        torch.cuda.empty_cache()
+    return summary
+
+
+def phase_kron_axes_path(card: str) -> None:
+    """The slice's path: K7 as the operator of a float32 CG solve at
+    grid32x5_mixed's data and parameters, held to the float64 Schur solve of
+    the same system; then each K6-K8 entry point once at each phase-10 shape."""
+    import torch
+    from gp_grief_tpu_torch.ops.cg import cg_solve
+    from gp_grief_tpu_torch.ops.cuda import kron as tk
+    from gp_grief_tpu_torch.ops.cuda import kron_axes as ka
+    from gp_grief_tpu_torch.ops.kron import kron_eigh, kron_solve_schur
+
+    name = "grid32x5_mixed"
+    cfg = GRID_CONFIGS[name]
+    xg, y = grid_data(name)
+    with torch.no_grad():
+        m32 = grid_model(name, xg, y, torch.float32, DEVICE)
+        Ks = [K.contiguous() for K in m32._factors()]
+        s2 = float(torch.exp(m32.log_noise))
+        before = ka.kron_matmat_cuda.launches
+        (x32, info), t_cg = timed(lambda: cg_solve(lambda v: ka.kron_matvec_cuda(Ks, v) + s2 * v, m32.y,
+                                                   tol=cfg["model"]["cg_tol"], max_iters=cfg["model"]["cg_iters"],
+                                                   return_info=True))
+        launched = ka.kron_matmat_cuda.launches - before
+        del m32
+        m64 = grid_model(name, xg, y, torch.float64, DEVICE)
+        K64 = m64._factors()
+        s64 = float(torch.exp(m64.log_noise))
+        Qs, lams = kron_eigh(K64)
+        x64, t_schur = timed(lambda: kron_solve_schur(Qs, lams, m64.y, shift=s64))
+        rel = float(torch.linalg.norm(x32.double() - x64) / torch.linalg.norm(x64))
+        resid = tk.kron_chain_ref(K64, x32.double()[:, None])[:, 0] + s64 * x32.double() - m64.y
+        rel_res = float(torch.linalg.norm(resid) / torch.linalg.norm(m64.y))
+        finite = bool(torch.isfinite(x32).all())
+        del m64, K64, Qs, x64, resid, x32
+        torch.cuda.empty_cache()
+    emit({"phase": "kron_axes_cg", "config": name, "M": int(np.prod(cfg["sizes"])), "noise_var": cfg["noise_var"],
+          "cg_tol": cfg["model"]["cg_tol"], "cg_iterations": info.iterations, "k7_launches": launched,
+          "rel_err_vs_f64_schur": rel, "tol": K7_CG_RTOL, "true_rel_residual_f64": rel_res,
+          "s": {"cg_f32": t_cg, "schur_f64": t_schur}, "card": card})
+    check(finite, f"{name}: non-finite K7 CG solution")
+    check(launched > 0, "the K7 CG solve never launched kron_matmat_cuda")
+    check(rel <= K7_CG_RTOL, f"{name}: K7 CG solution off the f64 Schur solution by {rel:.3e}")
+    # Each entry point once at its phase-10 shapes, as a caller runs it.
+    with torch.no_grad():
+        for label, kname, shape, precisions, fshapes, lead, B, run, *_ in axes_cases():
+            x = torch.randn(shape, generator=torch.Generator(device=DEVICE).manual_seed(1), device=DEVICE)
+            for precision in precisions:
+                out = run(x, precision)
+                check(bool(torch.isfinite(out).all()), f"{kname} {label} {precision}: non-finite output")
+            del x, out
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -973,15 +1191,20 @@ def main() -> int:
     ptxas = [ln.strip() for ln in _build.build_log().splitlines() if "ptxas info" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
 
-    # Phases 3, 6 and 8 (the kernels against their plain versions) run here,
+    # Phases 3, 6, 8 and 10 (the kernels against their plain versions) run here,
     # before the paths, so a wrong kernel stops the script early.
     k1 = phase_kernel(card)
     kron = phase_kron(card)
     ski_k = phase_ski_kernels(card)
+    axes = phase_kron_axes(card)
 
-    from gp_grief_tpu_torch.ops.cuda import interp_wt, kron_matvec_fused, kron_matvec_slab, wtw_stencil
+    from gp_grief_tpu_torch.ops.cuda import (
+        interp_wt, kron_matmat_cuda, kron_matvec_fused, kron_matvec_slab, last_slab_pass, tail2_pass, tail3_pass,
+        wtw_stencil,
+    )
 
-    counters = (phi_fused, kron_matvec_slab, kron_matvec_fused, interp_wt, wtw_stencil)
+    counters = (phi_fused, kron_matvec_slab, kron_matvec_fused, interp_wt, wtw_stencil, kron_matmat_cuda,
+                last_slab_pass, tail3_pass, tail2_pass)
 
     def reset():
         for fn in counters:
@@ -1011,7 +1234,7 @@ def main() -> int:
         entries.append({"name": name, "route": "cuda", "source": "gp_grief_tpu_torch/csrc/kron_pass.cu",
                         "replaces": replaces, "launches": fn.launches, "max_abs_err": k["max_abs_err"],
                         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                        "bound_by": k["bound_by"], "library_ms": None, "chain_ms": k["chain_ms"]})
+                        "bound_by": k["bound_by"], "library_ms": k["library_ms"], "chain_ms": k["chain_ms"]})
 
     # Phase 9: the SKI path.  The float64 runs (parity, and the float32 runs'
     # yardstick) come first; the launches count the float32 runs alone.
@@ -1030,6 +1253,22 @@ def main() -> int:
                         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                         "bound_by": k["bound_by"], "library_ms": k["library_ms"],
                         "launches_per_nlml": {c: per_nlml[c][key] for c in SKI_CONFIGS}})
+
+    # Phase 10: the per-axis passes' path (K7 as a CG operator, K6-K8 at the
+    # 32^5 shapes).
+    reset()
+    phase_kron_axes_path(card)
+    for name, replaces, fn in (("kron_matmat_cuda", "gp_grief_tpu/ops/pallas/kron_pallas.py:108", kron_matmat_cuda),
+                               ("last_slab_pass", "gp_grief_tpu/ops/pallas/kron_pallas.py:46", last_slab_pass),
+                               ("tail3_pass", "gp_grief_tpu/ops/pallas/kron_pallas.py:525", tail3_pass),
+                               ("tail2_pass", "gp_grief_tpu/ops/pallas/kron_pallas.py:590", tail2_pass)):
+        check(fn.launches > 0, f"the phase-10 path never launched {name}")
+        k = axes[name]
+        entries.append({"name": name, "route": "cuda", "source": "gp_grief_tpu_torch/csrc/kron_pass.cu",
+                        "replaces": replaces, "launches": fn.launches, "max_abs_err": k["max_abs_err"],
+                        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                        "bound_by": k["bound_by"], "library_ms": k["library_ms"], "shape": k["shape"],
+                        **({"chain_ms": k["chain_ms"]} if "chain_ms" in k else {})})
 
     print(card, flush=True)
     emit({"kernels": entries})

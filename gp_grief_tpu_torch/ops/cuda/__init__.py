@@ -6,6 +6,11 @@ first use (``_build.py``) and bound with ctypes.
 * K2 :func:`kron_matvec_slab` and K3 :func:`kron_matvec_fused` — the
   Kronecker matvec (``csrc/kron_pass.cu``; replace ``kron_pallas.py``'s
   slab and general fused schedules).
+* K6 :func:`last_slab_pass`, K7 :func:`kron_matmat_cuda` /
+  :func:`kron_matvec_cuda` and K8 :func:`tail3_pass` / :func:`tail2_pass` —
+  per-axis Kronecker passes on the same kernel family (``kron_axes.py``;
+  replace ``kron_pallas.py``'s ``last_slab_pass``, ``_mid_axis_pass`` /
+  ``_last_axis_pass`` and ``_tail3_pass`` / ``_tail2_pass``).
 * K4 :func:`interp_wt` — the SKI interpolation transpose ``Wᵀu``
   (``csrc/interp_wt.cu``; replaces ``gp_grief_tpu/ops/interp.py:make_onehot_rmatvec``).
 * K5 :func:`wtw_stencil` — the SKI ``WᵀW`` stencil (``csrc/wtw_stencil.cu``;
@@ -20,10 +25,22 @@ from gp_grief_tpu_torch.ops.cuda.kron import (
     kron_matvec_slab,
     slab_schedule_applicable,
 )
+from gp_grief_tpu_torch.ops.cuda.kron_axes import (
+    kron_matmat_cuda,
+    kron_matvec_cuda,
+    last_slab_pass,
+    last_slab_pass_ref,
+    tail2_pass,
+    tail2_pass_ref,
+    tail3_pass,
+    tail3_pass_ref,
+)
 from gp_grief_tpu_torch.ops.cuda.phi import phi_fused, phi_fused_ref
 from gp_grief_tpu_torch.ops.cuda.stencil import wtw_stencil
 
 __all__ = [
     "phi_fused", "phi_fused_ref", "kron_chain_ref", "kron_matvec_slab", "kron_matvec_fused",
-    "slab_schedule_applicable", "fused_schedule_applicable", "interp_wt", "wtw_stencil",
+    "slab_schedule_applicable", "fused_schedule_applicable", "kron_matmat_cuda", "kron_matvec_cuda",
+    "last_slab_pass", "last_slab_pass_ref", "tail3_pass", "tail3_pass_ref", "tail2_pass", "tail2_pass_ref",
+    "interp_wt", "wtw_stencil",
 ]

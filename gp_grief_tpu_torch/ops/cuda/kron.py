@@ -299,6 +299,7 @@ def slab_schedule_applicable(factors: Sequence[torch.Tensor], B: int = 1) -> boo
 # The Hopper pass plan and the plain version.
 # ---------------------------------------------------------------------------
 
+_ERR_SHAPE = -1  # csrc: the return value for arguments a member does not take
 _TILE_MAX_AXIS = 64  # fibre registers a thread holds (csrc: MAXN <= 64)
 _TILE_MAX_GROUP = 3
 _SMEM_LIMIT = 232448  # bytes of shared memory a block can use on sm_90
@@ -361,12 +362,12 @@ def _bf16_round(t: torch.Tensor) -> torch.Tensor:
 
 
 def kron_chain_ref(factors: Sequence[torch.Tensor], v: torch.Tensor, *, fast: bool = False) -> torch.Tensor:
-    """Plain version of K2 and K3: ``(⊗ K_d) · v`` for ``v`` ``(M, B)``, one
-    ``tensordot`` per axis from the last to the first, as the kernels'
-    passes run.  ``fast`` rounds both operands of every contraction to bf16
-    (products accumulate in the working precision), which also stands for
-    the kernels' bf16 storage between passes.  Computes in float64 for a
-    float64 ``v``, else float32; returns ``v``'s dtype."""
+    """Plain version of K2, K3, K7 and K8: ``(⊗ K_d) · v`` for ``v``
+    ``(M, B)``, one ``tensordot`` per axis from the last to the first, as
+    the kernels' passes run.  ``fast`` rounds both operands of
+    every contraction to bf16 (products accumulate in the working precision),
+    which also stands for the kernels' bf16 storage between passes.  Computes
+    in float64 for a float64 ``v``, else float32; returns ``v``'s dtype."""
     work = torch.float64 if v.dtype == torch.float64 else torch.float32
     ms = [int(K.shape[1]) for K in factors]
     cur = list(ms)
@@ -382,8 +383,10 @@ def kron_chain_ref(factors: Sequence[torch.Tensor], v: torch.Tensor, *, fast: bo
     return x.reshape(-1, B).to(v.dtype)
 
 
-def _launch(which, factors, v: torch.Tensor, fast: bool, mid_dtype) -> torch.Tensor:
-    """Run the Hopper pass plan on the card: one launch per pass."""
+def _launch(which, factors, v: torch.Tensor, fast: bool, mid_dtype, *, lead: int = 1, plan=None) -> torch.Tensor:
+    """Run a pass plan on the card, one launch per pass: ``(I_lead ⊗ (⊗
+    K_d)) · v`` for ``v`` ``(lead·M, B)``.  ``plan`` defaults to
+    :func:`_hopper_plan`."""
     name = which.__name__
     if any(K.dtype != torch.float32 for K in factors):
         raise TypeError(f"{name} kernel takes float32 factors, got {[K.dtype for K in factors]}")
@@ -397,7 +400,7 @@ def _launch(which, factors, v: torch.Tensor, fast: bool, mid_dtype) -> torch.Ten
     ms = [int(K.shape[1]) for K in factors]
     outs = [int(K.shape[0]) for K in factors]
     B = int(v.shape[1])
-    plan = _hopper_plan(ms, outs, B)
+    plan = plan or _hopper_plan(ms, outs, B)
     cur = list(ms)
     x = v
     with torch.cuda.device(v.device):
@@ -405,7 +408,7 @@ def _launch(which, factors, v: torch.Tensor, fast: bool, mid_dtype) -> torch.Ten
         for step, (i, j, P) in enumerate(plan):
             last = step == len(plan) - 1
             odt = v.dtype if last else (mid_dtype or torch.float32)
-            pre, post = math.prod(cur[:i]), math.prod(cur[j + 1 :]) * B
+            pre, post = lead * math.prod(cur[:i]), math.prod(cur[j + 1 :]) * B
             shape = (pre, *outs[i : j + 1], post)
             out = torch.empty(shape, dtype=odt, device=v.device)
             flags = (int(fast), int(x.dtype == torch.bfloat16), int(odt == torch.bfloat16))
@@ -422,8 +425,10 @@ def _launch(which, factors, v: torch.Tensor, fast: bool, mid_dtype) -> torch.Ten
                     x.data_ptr(), out.data_ptr(), *Ks, j - i + 1, *ns, *os_, pre, post, P, *flags, stream,
                 )
             if err != 0:
+                what = "a shape the kernel does not take" if err == _ERR_SHAPE else "CUDA error"
                 raise RuntimeError(
-                    f"{name} pass over factors {i}..{j} of {tuple(ms)} (B={B}) failed with error {err}"
+                    f"{name} pass over factors {i}..{j} of {tuple(ms)} (B={B}, lead={lead}; pass input "
+                    f"{(pre, *cur[i : j + 1], post)}) failed: {what} {err}"
                 )
             which.launches += 1
             cur[i : j + 1] = outs[i : j + 1]
