@@ -111,9 +111,13 @@ UCI2M_RMSE_MAX = 0.12
 KERNEL_TOL = {"float32": 1e-5, "float64": 1e-12}
 
 # H100 SXM peaks (NVIDIA's data sheet, dense): memory rate, and the
-# operation rate of each grade: FP32 FMA outside the tensor cores, bf16.
+# operation rate of each grade.  "highest" (float32 accuracy) is the fastest
+# way the card reaches it: three TF32 tensor-core products per product
+# (3xTF32), 495e12 / 3, above the 67e12 of FP32 FMA outside the tensor cores,
+# so a bound reads the same work whichever unit a kernel runs it on; bf16 for
+# "default".
 H100_BYTES_PER_S = 3.35e12
-H100_FLOPS = {"highest": 67e12, "default": 989e12}
+H100_FLOPS = {"highest": 495e12 / 3, "default": 989e12}
 
 # (name, d, n, m, p): the shapes the main path hands K1.
 KERNEL_SHAPES = [

@@ -10,60 +10,85 @@
 // Replaces the TPU kernels of gp_grief_tpu/ops/pallas/kron_pallas.py:
 //   K2 (kron_matvec_slab):  _fused_mid_pair_pass :357, _mid_widened_pass :304,
 //                           _mid2_fused_pass :457;
-//   K3 (kron_matvec_fused): _tail_group_pass :695, _mid_group_pass :785.
+//   K3 (kron_matvec_fused): _tail_group_pass :695, _mid_group_pass :785;
+//   K6 last_slab_pass :46; K7 _mid_axis_pass :108, _last_axis_pass :132;
+//   K8 _tail3_pass :525, _tail2_pass :590.
 // Their pass structure (lane width 128, K ⊗ I_G widening, an explicit
 // 1024-wide K_{d-1} ⊗ K_d pair matrix, VMEM budgets, hi/lo bf16 splits)
-// follows TPU rules and is not carried over.  Two members here:
+// follows TPU rules and is not carried over.  Two members here.
 //
-// * kron_tile_kernel, for axes of at most 64 points: a block stages the
-//   group's full extent (up to three axes) times a tile of P trailing
-//   columns in shared memory, with the factors beside it, and contracts the
-//   axes one after another in place.  Each thread takes whole fibres into
-//   registers, so a fibre is read before any of its outputs is written.
-//   At 32^5 the plan is two passes: axes (2,3,4) with P = 1 (a 32x32x33
-//   f32 tile, 135 KB, contiguous in memory) and axes (0,1) with P = 32.
-// * kron_wide_kernel, for one axis wider than 64 (the 512-wide factors of
-//   the 8x512x512 lattice): a batched SIMT GEMM, 128x128x8 tiles, 8x8
-//   outputs a thread, the next chunk prefetched into registers; C = X·Kᵀ
-//   when the axis is last, C_p = K·X_p otherwise.
+// kron_tile_kernel, for groups of up to three axes of at most 64 points.
+//   A block stages the group's full extent times P trailing columns, and R
+//   consecutive rows of `pre` when P covers the whole trailing extent (the R
+//   rows are then one contiguous run), in shared memory with the factors
+//   beside it, and contracts the axes one after another in place.  Each
+//   thread takes whole fibres into registers, so a fibre is read before any
+//   of its outputs is written; each output is one FMA chain over k = 0..n-1.
+//   What bounds it: bytes.  At 32x32 a pass does 2·(32+32) = 128 FLOP per
+//   element against 8 bytes moved, 16 FLOP/byte, under FP32's ridge of
+//   67e12 / 3.35e12 = 20, so tensor cores would not move its bound; FMA on
+//   CUDA cores stays, at both grades.  What the design does about the bytes:
+//   row batches give every thread of a 256-thread block two fibres where
+//   one row has only 32 (tail2_pass: R = 16, a 76 KB block), a tile of at
+//   most 113 KB keeps two blocks resident on an SM so that one block's
+//   loads run under the other's contraction, and the grid is as many blocks
+//   as the SMs hold, each staging its factors once and looping over its
+//   rows.  Tiles over 113 KB (K2's first pass at 32^5, tail3_pass: 144 KB)
+//   keep R = 1 and 512 threads.
 //
-// What bounds it on an H100 SXM (3.35 TB/s, 67 TFLOP/s FP32 FMA):
-//   32^5 (M = 33.5M, B = 1): 2·M·5·32 = 10.7 GFLOP against at least one read
-//   and one write of 134 MB, 80 µs of memory, 160 µs of FP32 FMA issue.  The
-//   two-pass plan moves 403 MB with bf16 storage between passes (120 µs).
-//   The tile kernel keeps one block per SM at a 135 KB tile, so its loads,
-//   FMAs and stores do not overlap (each thread keeps 8 loads in flight);
-//   a bf16 tile, two blocks per SM or tensor-core (mma.sync bf16)
-//   contractions are the next steps.
-//   8x512x512 (M = 2.1M): 2·M·(8+512+512) = 4.33 GFLOP FP32, 65 µs, with
-//   16.8 MB of traffic (5 µs, L2-resident): FMA-bound, so the 512-wide axes
-//   go to the register-blocked GEMM, not to the tile kernel.
+// kron_wide_kernel, for one axis wider than 64 points (K3's 512-wide axes,
+//   K6, K7's wide axes): a batched GEMM on the tensor cores, C = X·Kᵀ when
+//   the axis is last, C_p = K·X_p otherwise.  128 x {64, 128} output tiles
+//   (64 when the output width is at most 64, so K6's 64 outputs compute no
+//   zeros), 32-deep chunks in a ring of 3-6 shared-memory stages filled by
+//   cp.async (16-byte copies where rows are 16-byte aligned, 4-byte copies
+//   otherwise, zero-filled past the ragged M, N and K edges); each block
+//   walks its tiles and their chunks as one sequence, so the next tile's
+//   first chunks arrive while the current tile finishes.  At the exact grade,
+//   C = X·Kᵀ keeps all of K in shared memory when it fits beside the ring
+//   (K6's shapes): every block reads the same factor, and staging it per
+//   tile cost as much L2 bandwidth as X's own stream.  Warp-level
+//   mma.sync: the exact grade runs 3xTF32 (each operand split into
+//   big = tf32(a) and small = tf32(a - big), big·big + big·small +
+//   small·big accumulated in f32, float32 accuracy), the fast grade bf16
+//   m16n8k16 with f32 accumulation.  What bounds it: at 8x512x512 the
+//   operations (2·M·512 per axis, 3x as TF32 products), at K6's shapes the
+//   bytes.  wgmma is later work: its tf32 form needs both operands K-major
+//   in shared memory, and X_p in the C_p = K·X_p role is N-major.
 //
 // Grades (template parameter FAST):
-//   exact: FP32 FMA on the operands as given (the JAX reference's HIGHEST).
+//   exact: float32 accuracy on the operands as given (the JAX reference's
+//          HIGHEST): FP32 FMA in the tile member, 3xTF32 in the wide one.
 //   fast:  every operand (factor entries and the vector entering each
 //          contraction) rounded to bf16, products accumulated in f32.  The
 //          result of a pass may be stored as bf16 (out_bf16), which rounds it
 //          exactly as the next contraction's operand rounding would.  The
 //          vector may arrive as bf16 (the mixed16 CG state).
-// Both grades use FMA on CUDA cores; the fast grade does not yet use the
-// tensor cores.
+// No atomics and no split of a sum across blocks: two launches give the same
+// bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <mutex>
 
 namespace {
 
 constexpr int SMEM_LIMIT = 232448;  // bytes a block can use on sm_90
-constexpr int TILE_THREADS = 512;
-constexpr int LOAD_BATCH = 8;  // tile kernel: global loads in flight per thread
-constexpr int WIDE_THREADS = 256;
-constexpr int WB = 128;  // wide kernel: output tile edge
-constexpr int WK = 8;    // wide kernel: depth of one staged chunk
-constexpr int WPAD = WB + 4;
-constexpr int WLOADS = WB * WK / WIDE_THREADS;  // operand elements a thread stages per chunk
+constexpr int SMEM_PER_SM = 233472;  // 228 KB an SM shares among its blocks
+constexpr int SMEM_RESERVED = 1024;  // taken by the runtime for each resident block
+// A block of at most this many bytes of shared memory leaves room for a second
+// resident block on its SM.
+constexpr int TWO_BLOCK_SMEM = SMEM_PER_SM / 2 - SMEM_RESERVED;
+constexpr int TILE_MAX_THREADS = 512;  // R = 1 tiles over TWO_BLOCK_SMEM
+constexpr int TILE_THREADS = 256;      // tiles that share their SM
+constexpr int LOAD_BATCH = 16;  // tile kernel: global loads in flight per thread
+
+constexpr int WIDE_THREADS = 256;  // 8 warps: 4 along M x 2 along N
+constexpr int WBM = 128;           // wide kernel: output rows of a tile
+constexpr int WBK = 32;            // depth of one staged chunk
+constexpr int WMIN_STAGES = 3, WMAX_STAGES = 6;  // chunks in the shared-memory ring
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -76,6 +101,55 @@ template <bool FAST> __device__ __forceinline__ float grade(float v) {
   return FAST ? __bfloat162float(__float2bfloat16_rn(v)) : v;
 }
 
+// The launch set-up of one kernel, made once: its shared-memory attributes
+// on each device, and the blocks the card holds at each (threads, bytes) it
+// was launched with.  Guarded by a mutex: ctypes calls run without the GIL.
+struct LaunchCache {
+  std::mutex m;
+  uint64_t ready = 0;  // bit d: attributes set on device d
+  int n = 0;
+  int dev[32], threads[32], smem[32], resident[32];
+};
+
+// Blocks for `work` items of a persistent kernel: as many as the SMs hold.
+// The kernel may take up to SMEM_LIMIT bytes of dynamic shared memory, and
+// asks for the SM's largest shared-memory share, so that as many blocks as
+// fit are resident.
+template <typename Kern>
+cudaError_t resident_grid(Kern kern, LaunchCache& c, int threads, int smem, int64_t work, int& grid) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(c.m);
+  if (dev >= 64 || !(c.ready >> dev & 1)) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    if (dev < 64) c.ready |= uint64_t{1} << dev;
+  }
+  int resident = 0;
+  for (int i = 0; i < c.n && !resident; ++i)
+    if (c.dev[i] == dev && c.threads[i] == threads && c.smem[i] == smem) resident = c.resident[i];
+  if (!resident) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    resident = (per_sm < 1 ? 1 : per_sm) * sms;
+    if (c.n < 32) {
+      c.dev[c.n] = dev, c.threads[c.n] = threads, c.smem[c.n] = smem, c.resident[c.n] = resident;
+      ++c.n;
+    }
+  }
+  grid = static_cast<int>(work < resident ? work : resident);
+  return cudaSuccess;
+}
+
+// ---------------------------------------------------------------------------
+// The tile member.
+// ---------------------------------------------------------------------------
+
 struct TileArgs {
   const float* K[3];
   int g;
@@ -86,26 +160,24 @@ struct TileArgs {
   int64_t post;
   int P;        // trailing columns per block (1: no column axis)
   int64_t ptiles;
+  int R;        // rows of pre per block (> 1 only when P == post)
   int stride[4];  // shared-memory strides of axes 0..g-1 and of the column axis
+  int row_tile;   // shared-memory floats of one row of pre
   int koff[3];    // float offset of each factor in shared memory
   // When every axis but the innermost shared-memory one has its input
   // (output) extent in shared memory, a staged tile is rows of row_stride
-  // floats, and an element's offsets need one division instead of one per axis.
+  // floats, and an element's offsets follow from one running (row, column)
+  // pair instead of one division per axis.
   bool in_rows, out_rows;
   int row_stride;
 };
 
 // Shared-memory offset, and global offset relative to the tile's first
-// element, of element e of a tile staged in (group axes..., column) order;
-// IN selects the input extents n (loads) or the output extents o (stores).
+// element, of element e of a tile staged in (row of pre, group axes...,
+// column) order; IN selects the input extents n (loads) or the output
+// extents o (stores), one division per axis.
 template <bool IN>
 __device__ __forceinline__ int tile_offsets(const TileArgs& a, int e, int pv, int64_t& goff) {
-  if (IN ? a.in_rows : a.out_rows) {
-    const int len = a.P > 1 ? pv : (IN ? a.n[a.g - 1] : a.o[a.g - 1]);
-    const int r = e / len, c = e - r * len;
-    goff = a.P > 1 ? static_cast<int64_t>(r) * a.post + c : e;
-    return r * a.row_stride + c;
-  }
   int rest = e, s = 0, q = 0;
   if (a.P > 1) {
     q = rest % pv;
@@ -117,12 +189,38 @@ __device__ __forceinline__ int tile_offsets(const TileArgs& a, int e, int pv, in
     s += (rest % ext) * a.stride[ax];
     rest /= ext;
   }
-  return s + q;
+  return s + q + rest * a.row_tile;
+}
+
+// A running (row, column) position of element e, e advancing by `step`.
+struct RowWalk {
+  int r, c, dr, dc, len;
+  __device__ RowWalk(int e, int step, int len_) : r(e / len_), c(e % len_), dr(step / len_), dc(step % len_), len(len_) {}
+  __device__ __forceinline__ void next() {
+    c += dc;
+    r += dr;
+    if (c >= len) {
+      c -= len;
+      ++r;
+    }
+  }
+};
+
+// Shared-memory offset, and global offset relative to the tile's first
+// element, of element e: from the running (row, column) position w where
+// the staged tile is rows, else by tile_offsets.
+template <bool IN>
+__device__ __forceinline__ int element_offsets(const TileArgs& a, const RowWalk& w, int e, int pv, int64_t& goff) {
+  if (IN ? a.in_rows : a.out_rows) {
+    goff = a.P > 1 ? static_cast<int64_t>(w.r) * a.post + w.c : static_cast<int64_t>(e) * a.post;
+    return w.r * a.row_stride + w.c;
+  }
+  return tile_offsets<IN>(a, e, pv, goff);
 }
 
 // One fibre of axis t: all other indices fixed.  Fibres are enumerated with
-// the column index fastest, then the remaining axes from the last, so
-// neighbouring threads touch neighbouring shared-memory words.
+// the column index fastest, then the remaining axes from the last, then the
+// row of pre, so neighbouring threads touch neighbouring shared-memory words.
 __device__ __forceinline__ int fibre_base(const TileArgs& a, const int* cur, int t, int f, int pv) {
   int base = 0;
   if (a.P > 1) {
@@ -134,55 +232,58 @@ __device__ __forceinline__ int fibre_base(const TileArgs& a, const int* cur, int
     base += (f % cur[ax]) * a.stride[ax];
     f /= cur[ax];
   }
-  return base;
+  return base + f * a.row_tile;
 }
 
 template <bool FAST, int MAXN, typename XT, typename OT>
-__global__ void __launch_bounds__(TILE_THREADS)
+__global__ void __launch_bounds__(TILE_MAX_THREADS)
 kron_tile_kernel(const XT* __restrict__ x, OT* __restrict__ out, TileArgs a) {
   extern __shared__ __align__(16) float smem[];
   float* tile = smem;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, nth = blockDim.x;
 
   for (int ax = 0; ax < a.g; ++ax) {
     const float* K = a.K[ax];
     float* Ks = smem + a.koff[ax];
     const int n = a.n[ax], np = a.npad[ax], cnt = a.o[ax] * np;
-    for (int e = tid; e < cnt; e += TILE_THREADS) {
+    for (int e = tid; e < cnt; e += nth) {
       const int r = e / np, c = e % np;
       Ks[e] = c < n ? grade<FAST>(K[static_cast<int64_t>(r) * n + c]) : 0.f;
     }
   }
 
-  int64_t nin = 1, nout = 1;
+  int nin = 1, nout = 1;
   for (int ax = 0; ax < a.g; ++ax) {
     nin *= a.n[ax];
     nout *= a.o[ax];
   }
+  const int64_t batches = (a.pre + a.R - 1) / a.R;
 
-  for (int64_t blk = blockIdx.x; blk < a.pre * a.ptiles; blk += gridDim.x) {
-    const int64_t p = blk / a.ptiles;
+  for (int64_t blk = blockIdx.x; blk < batches * a.ptiles; blk += gridDim.x) {
+    const int64_t p0 = (blk / a.ptiles) * a.R;
     const int64_t q0 = (blk % a.ptiles) * a.P;
     const int pv = static_cast<int>(min(static_cast<int64_t>(a.P), a.post - q0));
+    const int rv = static_cast<int>(min(static_cast<int64_t>(a.R), a.pre - p0));
 
-    // Stage x[p, :, :, :, q0:q0+pv] (column index fastest: contiguous runs).
-    // LOAD_BATCH independent loads are in flight per thread before any is
-    // stored: with one block of 16 warps per SM, one load at a time would
-    // leave the memory system idle.
-    const XT* xp = x + p * nin * a.post + q0;
-    const int nload = static_cast<int>(nin) * pv;
-    for (int e0 = tid; e0 < nload; e0 += LOAD_BATCH * TILE_THREADS) {
+    // Stage x[p0:p0+rv, :, :, :, q0:q0+pv] (column index fastest: contiguous
+    // runs).  LOAD_BATCH independent loads are in flight per thread before
+    // any is stored.
+    const XT* xp = x + p0 * nin * a.post + q0;
+    const int nload = rv * nin * pv;
+    RowWalk win(tid, nth, a.P > 1 ? pv : a.n[a.g - 1]);
+    for (int e0 = tid; e0 < nload; e0 += LOAD_BATCH * nth) {
       float v[LOAD_BATCH];
       int dst[LOAD_BATCH];
 #pragma unroll
       for (int u = 0; u < LOAD_BATCH; ++u) {
-        const int e = e0 + u * TILE_THREADS;
+        const int e = e0 + u * nth;
         dst[u] = -1;
         if (e < nload) {
           int64_t goff;
-          dst[u] = tile_offsets<true>(a, e, pv, goff);
+          dst[u] = element_offsets<true>(a, win, e, pv, goff);
           v[u] = to_f32(xp[goff]);
         }
+        win.next();
       }
 #pragma unroll
       for (int u = 0; u < LOAD_BATCH; ++u)
@@ -193,13 +294,13 @@ kron_tile_kernel(const XT* __restrict__ x, OT* __restrict__ out, TileArgs a) {
     // Contract the group's axes from the last to the first, in place.
     int cur[3] = {a.n[0], a.n[1], a.n[2]};
     for (int t = a.g - 1; t >= 0; --t) {
-      int fib = pv;
+      int fib = rv * pv;
       for (int ax = 0; ax < a.g; ++ax)
         if (ax != t) fib *= cur[ax];
       const int n = a.n[t], np = a.npad[t], no = a.o[t], st = a.stride[t];
       const float* Ks = smem + a.koff[t];
-      for (int f0 = tid; f0 < fib; f0 += 2 * TILE_THREADS) {
-        const int f1 = f0 + TILE_THREADS;
+      for (int f0 = tid; f0 < fib; f0 += 2 * nth) {
+        const int f1 = f0 + nth;
         const bool has1 = f1 < fib;
         const int b0 = fibre_base(a, cur, t, f0, pv);
         const int b1 = has1 ? fibre_base(a, cur, t, f1, pv) : b0;
@@ -234,119 +335,29 @@ kron_tile_kernel(const XT* __restrict__ x, OT* __restrict__ out, TileArgs a) {
       __syncthreads();
     }
 
-    // Write out[p, :, :, :, q0:q0+pv].
-    OT* op = out + p * nout * a.post + q0;
-    const int nstore = static_cast<int>(nout) * pv;
-    for (int e = tid; e < nstore; e += TILE_THREADS) {
+    // Write out[p0:p0+rv, :, :, :, q0:q0+pv].
+    OT* op = out + p0 * nout * a.post + q0;
+    const int nstore = rv * nout * pv;
+    RowWalk wout(tid, nth, a.P > 1 ? pv : a.o[a.g - 1]);
+    for (int e = tid; e < nstore; e += nth) {
       int64_t goff;
-      const int sidx = tile_offsets<false>(a, e, pv, goff);
+      const int sidx = element_offsets<false>(a, wout, e, pv, goff);
       op[goff] = from_f32<OT>(tile[sidx]);
+      wout.next();
     }
     __syncthreads();
   }
 }
 
-// Batched C[b] (M x N) = A[b] (M x K) · B[b] (K x N), every operand addressed
-// through its own strides; the unit-stride index of each operand is read
-// fastest so global loads coalesce.
-struct WideArgs {
-  int M, N, K;
-  int64_t batch;
-  int64_t sAb, sAi, sAk;
-  int64_t sBb, sBk, sBj;
-  int64_t sCb, sCi, sCj;
-};
-
-template <bool FAST, typename AT, typename BT, typename OT>
-__global__ void __launch_bounds__(WIDE_THREADS)
-kron_wide_kernel(const AT* __restrict__ A, const BT* __restrict__ B, OT* __restrict__ C, WideArgs w) {
-  __shared__ __align__(16) float As[WK][WPAD];
-  __shared__ __align__(16) float Bs[WK][WPAD];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int64_t mt = (w.M + WB - 1) / WB, nt = (w.N + WB - 1) / WB;
-
-  for (int64_t tile = blockIdx.x; tile < w.batch * mt * nt; tile += gridDim.x) {
-    const int64_t b = tile / (mt * nt);
-    const int i0 = static_cast<int>((tile / nt) % mt) * WB;
-    const int j0 = static_cast<int>(tile % nt) * WB;
-    const AT* Ab = A + b * w.sAb;
-    const BT* Bb = B + b * w.sBb;
-
-    float acc[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-    // The next chunk's operands are loaded into registers before the current
-    // chunk's FMAs, so their latency hides behind the arithmetic.
-    float ra[WLOADS], rb[WLOADS];
-    auto fetch = [&](int k0) {
-#pragma unroll
-      for (int u = 0; u < WLOADS; ++u) {
-        const int e = tid + u * WIDE_THREADS;
-        int r, c;
-        if (w.sAk == 1) { r = e / WK; c = e % WK; } else { c = e / WB; r = e % WB; }
-        const int gi = i0 + r, gk = k0 + c;
-        ra[u] = (gi < w.M && gk < w.K) ? grade<FAST>(to_f32(Ab[gi * w.sAi + gk * w.sAk])) : 0.f;
-        if (w.sBj == 1) { c = e % WB; r = e / WB; } else { r = e % WK; c = e / WK; }
-        const int gk2 = k0 + r, gj = j0 + c;
-        rb[u] = (gk2 < w.K && gj < w.N) ? grade<FAST>(to_f32(Bb[gk2 * w.sBk + gj * w.sBj])) : 0.f;
-      }
-    };
-    fetch(0);
-    for (int k0 = 0; k0 < w.K; k0 += WK) {
-#pragma unroll
-      for (int u = 0; u < WLOADS; ++u) {
-        const int e = tid + u * WIDE_THREADS;
-        if (w.sAk == 1) As[e % WK][e / WK] = ra[u]; else As[e / WB][e % WB] = ra[u];
-        if (w.sBj == 1) Bs[e / WB][e % WB] = rb[u]; else Bs[e % WK][e / WK] = rb[u];
-      }
-      __syncthreads();
-      if (k0 + WK < w.K) fetch(k0 + WK);
-#pragma unroll
-      for (int kk = 0; kk < WK; ++kk) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-        const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][ty * 4 + 64]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-        const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4 + 64]);
-        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = __fmaf_rn(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-
-    OT* Cb = C + b * w.sCb;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int gi = i0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-      if (gi >= w.M) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int gj = j0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-        if (gj < w.N) Cb[gi * w.sCi + gj * w.sCj] = from_f32<OT>(acc[i][j]);
-      }
-    }
-  }
-}
-
-int grid_size(int64_t work) {
-  constexpr int64_t CAP = 1 << 20;  // blocks beyond this loop inside the kernel
-  return static_cast<int>(work < CAP ? work : CAP);
-}
-
 template <bool FAST, int MAXN, typename XT, typename OT>
 int launch_tile(const void* x, void* out, const TileArgs& a, int smem, cudaStream_t stream) {
+  static LaunchCache cache;
   auto kern = kron_tile_kernel<FAST, MAXN, XT, OT>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int threads = smem <= TWO_BLOCK_SMEM ? TILE_THREADS : TILE_MAX_THREADS;
+  int grid = 0;
+  const cudaError_t err = resident_grid(kern, cache, threads, smem, (a.pre + a.R - 1) / a.R * a.ptiles, grid);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<grid_size(a.pre * a.ptiles), TILE_THREADS, smem, stream>>>(
-      static_cast<const XT*>(x), static_cast<OT*>(out), a);
+  kern<<<grid, threads, smem, stream>>>(static_cast<const XT*>(x), static_cast<OT*>(out), a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -356,44 +367,430 @@ int tile_by_width(const void* x, void* out, const TileArgs& a, int smem, int max
                     : launch_tile<FAST, 64, XT, OT>(x, out, a, smem, s);
 }
 
-template <bool FAST, typename AT, typename BT, typename OT>
-int launch_wide(const void* A, const void* B, void* C, const WideArgs& w, cudaStream_t stream) {
-  const int64_t tiles = w.batch * ((w.M + WB - 1) / WB) * ((w.N + WB - 1) / WB);
-  kron_wide_kernel<FAST, AT, BT, OT><<<grid_size(tiles), WIDE_THREADS, 0, stream>>>(
-      static_cast<const AT*>(A), static_cast<const BT*>(B), static_cast<OT*>(C), w);
+// ---------------------------------------------------------------------------
+// The wide member: batched C[b] (M x N) = A[b] (M x K) · B[b] (K x N) on the
+// tensor cores.  A is K-contiguous (rows of lda); B is K-contiguous (BKM: the
+// factor K, rows of ldb over N) or N-contiguous (X_p, rows of ldb over K); C
+// is N-contiguous (rows of ldc).
+// ---------------------------------------------------------------------------
+
+struct WideArgs {
+  int M, N, K;
+  int64_t batch;
+  int64_t lda, ldb, ldc;  // row strides, elements
+  int64_t sAb, sBb, sCb;  // batch strides, elements
+  int copyA, copyB;       // bytes per cp.async: 16 or 4; 0 = element-wise loads
+  bool pairC;             // C's rows start at even elements: columns c, c + 1 as one store
+};
+
+// Columns c, c + 1 (c even) of a C row, as one 8-byte (f32) or 4-byte (bf16) store.
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(src_bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N> __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+template <typename T> __device__ __forceinline__ T zero_of();
+template <> __device__ __forceinline__ float zero_of<float>() { return 0.f; }
+template <> __device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() { return __float2bfloat16_rn(0.f); }
+
+// Copy a rows x cols block (columns contiguous in memory and in shared
+// memory) whose valid part is rows_valid x cols_valid; the rest is zero.
+// `base` is any valid address of the operand, read by no copy of zero bytes.
+template <typename T>
+__device__ __forceinline__ void stage_block(T* dst, int ld_s, const T* src, int64_t ld_g, int rows, int cols,
+                                            int rows_valid, int cols_valid, int copy, const T* base) {
+  const int tid = threadIdx.x;
+  if (copy == 0) {  // rows not 4-byte aligned (bf16 with an odd row length)
+    for (int e = tid; e < rows * cols; e += WIDE_THREADS) {
+      const int r = e / cols, c = e % cols;
+      dst[r * ld_s + c] = (r < rows_valid && c < cols_valid) ? src[r * ld_g + c] : zero_of<T>();
+    }
+    return;
+  }
+  const int ch = copy / static_cast<int>(sizeof(T));  // elements per copy
+  const int per_row = cols / ch;
+  for (int i = tid; i < rows * per_row; i += WIDE_THREADS) {
+    const int r = i / per_row, c = (i - r * per_row) * ch;
+    int valid = r < rows_valid ? cols_valid - c : 0;
+    valid = valid < 0 ? 0 : (valid > ch ? ch : valid);
+    cp_async(dst + r * ld_s + c, valid ? src + r * ld_g + c : base, copy, valid * static_cast<int>(sizeof(T)));
+  }
+}
+
+// Shared-memory row lengths (elements), padded so that every fragment load
+// of a warp falls in distinct banks: K-contiguous operands are read as
+// (row g, column t) words (tf32), (row g, columns 2t..2t+1) pairs (bf16
+// from f32, one 8-byte load) or bf16x2 words; N-contiguous ones as
+// (k t, column g) words (tf32) or (k 2t and 2t+1, column g) pairs.
+template <bool FAST, typename T> constexpr int ld_kmajor(int depth) {
+  return sizeof(T) == 4 ? depth + (FAST ? 8 : 4) : depth + 8;
+}
+template <bool FAST, typename T, int BN> constexpr int ld_nmajor() {
+  return sizeof(T) == 4 ? BN + (FAST ? 4 : 8) : BN + 8;
+}
+
+// RES: the whole factor (the B of C = X·Kᵀ, exact grade) stays in shared
+// memory after the ring, loaded once per block; the ring carries X alone.
+// Every block reads the same factor, so re-staging it per tile costs as much
+// L2 bandwidth as X's own stream at K6's shapes.
+template <bool FAST, bool BKM, bool RES, int BN, typename AT, typename BT>
+struct WideLayout {
+  static constexpr int BK = RES ? 16 : WBK;  // depth of one staged chunk
+  static constexpr int LDA = ld_kmajor<FAST, AT>(BK);
+  static constexpr int LDB = BKM ? ld_kmajor<FAST, BT>(BK) : ld_nmajor<FAST, BT, BN>();
+  static constexpr int A_BYTES = WBM * LDA * static_cast<int>(sizeof(AT));
+  static constexpr int B_BYTES = RES ? 0 : (BKM ? BN : BK) * LDB * static_cast<int>(sizeof(BT));
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  // As many chunks in flight as two blocks an SM can hold (the reads, not
+  // the products, bound K6's shapes), within WMIN_STAGES..WMAX_STAGES; with
+  // a resident factor, four.
+  static constexpr int STAGES = RES                                   ? 4
+                                : TWO_BLOCK_SMEM / STAGE < WMIN_STAGES ? WMIN_STAGES
+                                : TWO_BLOCK_SMEM / STAGE > WMAX_STAGES ? WMAX_STAGES
+                                                                       : TWO_BLOCK_SMEM / STAGE;
+  static constexpr int SMEM = STAGES * STAGE;  // + the resident factor
+};
+
+// Row length (floats) of a resident factor of depth K: a multiple of 32 plus
+// 4, so that ldmatrix rows fall in distinct banks.
+__host__ __device__ constexpr int resident_ld(int K) { return (K + 31) / 32 * 32 + 4; }
+
+__device__ __forceinline__ uint32_t tf32_of(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+// big = tf32(v), small = tf32(v - big): big + small carries v to ~2^-22.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
+  big = tf32_of(v);
+  small = tf32_of(v - __uint_as_float(big));
+}
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+// Four 8x8 matrices of 16-bit elements (here 8 rows of four 32-bit words):
+// lane l gives the row address of matrix l / 8, row l % 8, and gets word l % 4
+// of row l / 4 of each matrix -- the (g, t) position of an mma fragment.
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Two bf16 of a K-contiguous row at columns c, c+1 (c even), as one register.
+__device__ __forceinline__ uint32_t kpair(const float* row, int c) {
+  const float2 v = *reinterpret_cast<const float2*>(row + c);
+  return bf16x2(v.x, v.y);
+}
+__device__ __forceinline__ uint32_t kpair(const __nv_bfloat16* row, int c) {
+  return *reinterpret_cast<const uint32_t*>(row + c);
+}
+
+template <bool FAST, bool BKM, bool RES, int BN, typename AT, typename BT, typename OT>
+__global__ void __launch_bounds__(WIDE_THREADS, 2)
+kron_wide_kernel(const AT* __restrict__ A, const BT* __restrict__ B, OT* __restrict__ C, WideArgs w) {
+  using L = WideLayout<FAST, BKM, RES, BN, AT, BT>;
+  constexpr int MT = WBM / 64, NT = BN / 16;  // m16 and n8 tiles of a warp's WBM/4 x BN/2 block
+  extern __shared__ __align__(16) unsigned char wsmem[];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm0 = (warp % 4) * (WBM / 4), wn0 = (warp / 4) * (BN / 2);
+
+  const int mt = (w.M + WBM - 1) / WBM, nt = (w.N + BN - 1) / BN;
+  const int64_t tiles = w.batch * mt * nt;
+  const int KT = (w.K + L::BK - 1) / L::BK;
+  if (blockIdx.x >= tiles) return;
+  const int64_t total = ((tiles - 1 - blockIdx.x) / gridDim.x + 1) * KT;
+
+  // The loads run L::STAGES - 1 chunks ahead of the products, across tiles; a
+  // tile's origin is decoded once, when its first chunk is issued.
+  int64_t ld_tile = blockIdx.x;
+  int ld_kt = 0, ld_stage = 0, ld_mv = 0, ld_nv = 0;
+  const AT* ld_a = A;
+  const BT* ld_b = B;
+  auto issue = [&]() {
+    if (ld_tile < tiles) {
+      if (ld_kt == 0) {
+        const int64_t b = ld_tile / (mt * nt);
+        const int rem = static_cast<int>(ld_tile - b * (mt * nt));
+        const int i0 = (rem / nt) * WBM, j0 = (rem % nt) * BN;
+        ld_a = A + b * w.sAb + i0 * w.lda;
+        ld_b = B + b * w.sBb + (BKM ? j0 * w.ldb : j0);
+        ld_mv = w.M - i0;
+        ld_nv = w.N - j0;
+      }
+      const int k0 = ld_kt * L::BK;
+      AT* As = reinterpret_cast<AT*>(wsmem + ld_stage * L::STAGE);
+      BT* Bs = reinterpret_cast<BT*>(wsmem + ld_stage * L::STAGE + L::A_BYTES);
+      stage_block(As, L::LDA, ld_a + k0, w.lda, WBM, L::BK, ld_mv, w.K - k0, w.copyA, A);
+      if constexpr (RES) {
+      } else if constexpr (BKM) {
+        stage_block(Bs, L::LDB, ld_b + k0, w.ldb, BN, L::BK, ld_nv, w.K - k0, w.copyB, B);
+      } else {
+        stage_block(Bs, L::LDB, ld_b + k0 * w.ldb, w.ldb, L::BK, BN, w.K - k0, ld_nv, w.copyB, B);
+      }
+      if (++ld_kt == KT) {
+        ld_kt = 0;
+        ld_tile += gridDim.x;
+      }
+    }
+    cp_async_commit();
+    ld_stage = ld_stage == L::STAGES - 1 ? 0 : ld_stage + 1;
+  };
+  // The resident factor (rows past N are never written out; columns past K
+  // read zero) arrives with the first chunk's copies.
+  BT* Bres = reinterpret_cast<BT*>(wsmem + L::SMEM);
+  const int ldr = resident_ld(w.K);
+  if constexpr (RES) stage_block(Bres, ldr, B, w.ldb, BN, ldr - 4, w.N, w.K, w.copyB, B);
+#pragma unroll
+  for (int s = 0; s < L::STAGES - 1; ++s) issue();
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+
+  int64_t tile = blockIdx.x;
+  int kt = 0, stage = 0;
+  for (int64_t it = 0; it < total; ++it) {
+    cp_async_wait<L::STAGES - 2>();
+    __syncthreads();  // chunk `it` has landed, and every warp is done with chunk it - 1
+    issue();
+    const AT* As = reinterpret_cast<const AT*>(wsmem + stage * L::STAGE);
+    const BT* Bs = reinterpret_cast<const BT*>(wsmem + stage * L::STAGE + L::A_BYTES);
+
+    if constexpr (!FAST) {  // 3xTF32 on float operands, k8 steps
+      const int q = lane / 8, rr = lane % 8;  // this lane's ldmatrix row address: matrix q, row rr
+      // B's k8 steps: in this chunk's stage, or at depth kt·BK of the resident factor.
+      const BT* Bk = RES ? Bres + kt * L::BK : Bs;
+      const int ldb = RES ? ldr : L::LDB;
+#pragma unroll
+      for (int ks = 0; ks < L::BK; ks += 8) {
+        if (kt * L::BK + ks >= w.K) break;  // the zero-filled end of the last chunk
+        uint32_t abig[MT][4], asml[MT][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          uint32_t raw[4];  // (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4) of the m16 x k8 tile
+          ldsm_x4(raw, As + (wm0 + i * 16 + rr + 8 * (q & 1)) * L::LDA + ks + 4 * (q >> 1));
+#pragma unroll
+          for (int u = 0; u < 4; ++u) split_tf32(__uint_as_float(raw[u]), abig[i][u], asml[i][u]);
+        }
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {  // two n8 tiles
+          uint32_t raw[4];  // b0, b1 of tile j, then of tile j + 1
+          if constexpr (BKM) {
+            ldsm_x4(raw, Bk + (wn0 + (j + (q >> 1)) * 8 + rr) * ldb + ks + 4 * (q & 1));
+          } else {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const BT* col = Bs + (ks + t) * L::LDB + wn0 + (j + h) * 8 + g;
+              raw[2 * h] = __float_as_uint(col[0]);
+              raw[2 * h + 1] = __float_as_uint(col[4 * L::LDB]);
+            }
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            uint32_t bbig[2], bsml[2];
+            split_tf32(__uint_as_float(raw[2 * h]), bbig[0], bsml[0]);
+            split_tf32(__uint_as_float(raw[2 * h + 1]), bbig[1], bsml[1]);
+#pragma unroll
+            for (int i = 0; i < MT; ++i) {
+              mma_tf32(acc[i][j + h], asml[i], bbig);
+              mma_tf32(acc[i][j + h], abig[i], bsml);
+              mma_tf32(acc[i][j + h], abig[i], bbig);
+            }
+          }
+        }
+      }
+    } else {  // bf16 m16n8k16
+#pragma unroll
+      for (int ks = 0; ks < L::BK; ks += 16) {
+        if (kt * L::BK + ks >= w.K) break;
+        uint32_t af[MT][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          const AT* r0 = As + (wm0 + i * 16 + g) * L::LDA + ks;
+          const AT* r1 = r0 + 8 * L::LDA;
+          af[i][0] = kpair(r0, 2 * t);
+          af[i][1] = kpair(r1, 2 * t);
+          af[i][2] = kpair(r0, 2 * t + 8);
+          af[i][3] = kpair(r1, 2 * t + 8);
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int n = wn0 + j * 8 + g;
+          uint32_t bf[2];
+          if constexpr (BKM) {
+            bf[0] = kpair(Bs + n * L::LDB + ks, 2 * t);
+            bf[1] = kpair(Bs + n * L::LDB + ks, 2 * t + 8);
+          } else {
+            const BT* col = Bs + ks * L::LDB + n;
+            bf[0] = bf16x2(to_f32(col[(2 * t) * L::LDB]), to_f32(col[(2 * t + 1) * L::LDB]));
+            bf[1] = bf16x2(to_f32(col[(2 * t + 8) * L::LDB]), to_f32(col[(2 * t + 9) * L::LDB]));
+          }
+#pragma unroll
+          for (int i = 0; i < MT; ++i) mma_bf16(acc[i][j], af[i], bf);
+        }
+      }
+    }
+
+    stage = stage == L::STAGES - 1 ? 0 : stage + 1;
+    if (++kt == KT) {  // the tile's last chunk: write it out and start the next
+      const int64_t b = tile / (mt * nt);
+      const int rem = static_cast<int>(tile % (mt * nt));
+      const int i0 = (rem / nt) * WBM, j0 = (rem % nt) * BN;
+      OT* Cb = C + b * w.sCb;
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int c = j0 + wn0 + j * 8 + 2 * t;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = i0 + wm0 + i * 16 + g + 8 * h;
+            if (r < w.M) {
+              OT* p = Cb + r * w.ldc + c;
+              if (w.pairC && c + 1 < w.N) {
+                store_pair(p, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+              } else {
+                if (c < w.N) p[0] = from_f32<OT>(acc[i][j][2 * h]);
+                if (c + 1 < w.N) p[1] = from_f32<OT>(acc[i][j][2 * h + 1]);
+              }
+            }
+            acc[i][j][2 * h] = acc[i][j][2 * h + 1] = 0.f;
+          }
+        }
+      kt = 0;
+      tile += gridDim.x;
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// Bytes per cp.async for an operand at p with row stride ld and batch stride
+// sb (elements of `size` bytes): 16 where every row starts 16-byte aligned,
+// else 4 where every row starts 4-byte aligned, else 0.
+int copy_bytes(const void* p, int64_t ld, int64_t sb, int size) {
+  const auto aligned = [&](int64_t b) {
+    return reinterpret_cast<uintptr_t>(p) % b == 0 && (ld * size) % b == 0 && (sb * size) % b == 0;
+  };
+  return aligned(16) ? 16 : (aligned(4) ? 4 : 0);
+}
+
+template <bool FAST, bool BKM, bool RES, int BN, typename AT, typename BT, typename OT>
+int launch_wide(const void* A, const void* B, void* C, WideArgs w, cudaStream_t stream) {
+  static LaunchCache cache;
+  auto kern = kron_wide_kernel<FAST, BKM, RES, BN, AT, BT, OT>;
+  const int smem = WideLayout<FAST, BKM, RES, BN, AT, BT>::SMEM +
+                   (RES ? BN * resident_ld(w.K) * static_cast<int>(sizeof(BT)) : 0);
+  w.copyA = copy_bytes(A, w.lda, w.sAb, sizeof(AT));
+  w.copyB = copy_bytes(B, w.ldb, w.sBb, sizeof(BT));
+  w.pairC = reinterpret_cast<uintptr_t>(C) % (2 * sizeof(OT)) == 0 && w.ldc % 2 == 0 && w.sCb % 2 == 0;
+  int grid = 0;
+  const int64_t tiles = w.batch * ((w.M + WBM - 1) / WBM) * ((w.N + BN - 1) / BN);
+  const cudaError_t err = resident_grid(kern, cache, WIDE_THREADS, smem, tiles, grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<grid, WIDE_THREADS, smem, stream>>>(static_cast<const AT*>(A), static_cast<const BT*>(B),
+                                             static_cast<OT*>(C), w);
   return static_cast<int>(cudaGetLastError());
 }
 
-// x is the A operand when the contracted axis is last (C = X·Kᵀ), else the
-// B operand (C_p = K·X_p).
+// x is the A operand when the contracted axis is last (C = X·Kᵀ, K read as a
+// K-contiguous B), else the N-contiguous B operand (C_p = K·X_p).
 template <bool FAST, typename XT, typename OT>
-int wide_by_role(const void* x, const void* K, void* out, const WideArgs& w, bool x_is_a, cudaStream_t s) {
-  return x_is_a ? launch_wide<FAST, XT, float, OT>(x, K, out, w, s)
-                : launch_wide<FAST, float, XT, OT>(K, x, out, w, s);
+int wide_by_role(const void* x, const void* K, void* out, const WideArgs& w, bool x_is_a, int bn, cudaStream_t s) {
+  if (x_is_a) {
+    if constexpr (!FAST) {  // the factor resident where it fits beside the ring, two blocks an SM
+      const auto fits = [&](int tile, int ring) {
+        return w.N <= tile && w.K <= 1024 && tile * resident_ld(w.K) * 4 + ring <= TWO_BLOCK_SMEM;
+      };
+      if (bn == 64 && fits(64, WideLayout<false, true, true, 64, float, float>::SMEM))
+        return launch_wide<false, true, true, 64, float, float, float>(x, K, out, w, s);
+      if (bn == 128 && fits(128, WideLayout<false, true, true, 128, float, float>::SMEM))
+        return launch_wide<false, true, true, 128, float, float, float>(x, K, out, w, s);
+    }
+    return bn == 64 ? launch_wide<FAST, true, false, 64, XT, float, OT>(x, K, out, w, s)
+                    : launch_wide<FAST, true, false, 128, XT, float, OT>(x, K, out, w, s);
+  }
+  return bn == 64 ? launch_wide<FAST, false, false, 64, float, XT, OT>(K, x, out, w, s)
+                  : launch_wide<FAST, false, false, 128, float, XT, OT>(K, x, out, w, s);
 }
 
 constexpr int ERR_SHAPE = -1;  // arguments the kernels do not take
 
+// Makes `device` current for a launch and restores the caller's device.
+struct DeviceScope {
+  int prev = -1;
+  cudaError_t err = cudaSuccess;
+  explicit DeviceScope(int device) {
+    int cur = 0;
+    err = cudaGetDevice(&cur);
+    if (err == cudaSuccess && cur != device) {
+      err = cudaSetDevice(device);
+      prev = cur;
+    }
+  }
+  ~DeviceScope() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+};
+
 }  // namespace
 
 // Plain C entry points, loaded with ctypes.  Pointers and the stream are
-// void*; the return value is the launch's cudaError_t, or ERR_SHAPE.
+// void*; `device` is the index of the card the tensors and the stream are on.
+// The return value is the launch's cudaError_t, or ERR_SHAPE.
 //
 // Tile pass: contract g (1-3) adjacent axes of x (pre, n_0..n_{g-1}, post)
 // with factors K_a (o_a, n_a), f32, row-major; every n_a <= 64.  P columns
-// of post per block (P = 1 when post = 1).
+// of post and R rows of pre per block (R > 1 only when P == post).
 extern "C" int gp_grief_kron_tile_pass(const void* x, void* out, const void* K0, const void* K1,
                                        const void* K2, int g, int n0, int n1, int n2, int o0, int o1,
-                                       int o2, long long pre, long long post, int P, int fast,
-                                       int x_bf16, int out_bf16, void* stream) {
+                                       int o2, long long pre, long long post, int P, int R, int fast,
+                                       int x_bf16, int out_bf16, int device, void* stream) {
+  const DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return static_cast<int>(scope.err);
   TileArgs a{};
   const void* Ks[3] = {K0, K1, K2};
   const int ns[3] = {n0, n1, n2}, os[3] = {o0, o1, o2};
   if (g < 1 || g > 3 || pre < 1 || post < 1 || P < 1 || P > post) return ERR_SHAPE;
+  if (R < 1 || (R > 1 && P != post)) return ERR_SHAPE;
   a.g = g;
   a.pre = pre;
   a.post = post;
   a.P = P;
+  a.R = R;
   a.ptiles = (post + P - 1) / P;
   int maxn = 0;
   for (int ax = 0; ax < g; ++ax) {
@@ -407,7 +804,7 @@ extern "C" int gp_grief_kron_tile_pass(const void* x, void* out, const void* K0,
   for (int ax = g; ax < 3; ++ax) a.n[ax] = a.o[ax] = a.npad[ax] = 1;
   // Shared-memory extents max(n, o) per axis (+ the column axis), the
   // innermost one padded to an odd count so that fibres along it fall in
-  // distinct banks.
+  // distinct banks; R rows of that tile, one after another.
   int ext[4];
   const int naxes = g + (P > 1 ? 1 : 0);
   for (int ax = 0; ax < g; ++ax) ext[ax] = ns[ax] > os[ax] ? ns[ax] : os[ax];
@@ -419,13 +816,16 @@ extern "C" int gp_grief_kron_tile_pass(const void* x, void* out, const void* K0,
     s *= ext[ax];
   }
   if (P == 1) a.stride[g] = 1;
+  if (s > SMEM_LIMIT) return ERR_SHAPE;
+  a.row_tile = static_cast<int>(s);
   a.row_stride = naxes > 1 ? a.stride[naxes - 2] : static_cast<int>(s);
   a.in_rows = a.out_rows = true;
   for (int ax = 0; ax < naxes - 1 && ax < g; ++ax) {
     a.in_rows = a.in_rows && ext[ax] == ns[ax];
     a.out_rows = a.out_rows && ext[ax] == os[ax];
   }
-  int64_t floats = (s + 3) / 4 * 4;  // factor rows are read as float4
+  int64_t floats = (static_cast<int64_t>(R) * s + 3) / 4 * 4;  // factor rows are read as float4
+  if (floats * 4 > SMEM_LIMIT) return ERR_SHAPE;
   for (int ax = 0; ax < g; ++ax) {
     a.koff[ax] = static_cast<int>(floats);
     floats += static_cast<int64_t>(a.o[ax]) * a.npad[ax];
@@ -446,35 +846,38 @@ extern "C" int gp_grief_kron_tile_pass(const void* x, void* out, const void* K0,
                   : tile_by_width<true, float, float>(x, out, a, sm, maxn, st);
 }
 
-// Wide pass: contract one axis of x (pre, n, post) with K (o, n), f32.
+// Wide pass: contract one axis of x (pre, n, post) with K (o, n), f32, in
+// output tiles bn (64 or 128) wide.
 extern "C" int gp_grief_kron_wide_pass(const void* x, void* out, const void* K, int n, int o,
-                                       long long pre, long long post, int fast, int x_bf16,
-                                       int out_bf16, void* stream) {
-  if (n < 1 || o < 1 || pre < 1 || post < 1) return ERR_SHAPE;
+                                       long long pre, long long post, int bn, int fast, int x_bf16,
+                                       int out_bf16, int device, void* stream) {
+  const DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return static_cast<int>(scope.err);
+  if (n < 1 || o < 1 || pre < 1 || post < 1 || (bn != 64 && bn != 128)) return ERR_SHAPE;
   WideArgs w{};
   const bool x_is_a = post == 1;
   if (x_is_a) {  // C (pre x o) = X (pre x n) · Kᵀ
     if (pre > INT32_MAX) return ERR_SHAPE;
     w.M = static_cast<int>(pre); w.N = o; w.K = n; w.batch = 1;
-    w.sAb = 0; w.sAi = n; w.sAk = 1;
-    w.sBb = 0; w.sBk = 1; w.sBj = n;
-    w.sCb = 0; w.sCi = o; w.sCj = 1;
+    w.lda = n; w.ldb = n; w.ldc = o;
+    w.sAb = w.sBb = w.sCb = 0;
   } else {  // C_p (o x post) = K (o x n) · X_p (n x post)
     if (post > INT32_MAX) return ERR_SHAPE;
     w.M = o; w.N = static_cast<int>(post); w.K = n; w.batch = pre;
-    w.sAb = 0; w.sAi = n; w.sAk = 1;
-    w.sBb = static_cast<int64_t>(n) * post; w.sBk = post; w.sBj = 1;
-    w.sCb = static_cast<int64_t>(o) * post; w.sCi = post; w.sCj = 1;
+    w.lda = n; w.ldb = post; w.ldc = post;
+    w.sAb = 0;
+    w.sBb = static_cast<int64_t>(n) * post;
+    w.sCb = static_cast<int64_t>(o) * post;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!fast) {
     if (x_bf16 || out_bf16) return ERR_SHAPE;
-    return wide_by_role<false, float, float>(x, K, out, w, x_is_a, st);
+    return wide_by_role<false, float, float>(x, K, out, w, x_is_a, bn, st);
   }
   if (x_bf16) {
-    return out_bf16 ? wide_by_role<true, __nv_bfloat16, __nv_bfloat16>(x, K, out, w, x_is_a, st)
-                    : wide_by_role<true, __nv_bfloat16, float>(x, K, out, w, x_is_a, st);
+    return out_bf16 ? wide_by_role<true, __nv_bfloat16, __nv_bfloat16>(x, K, out, w, x_is_a, bn, st)
+                    : wide_by_role<true, __nv_bfloat16, float>(x, K, out, w, x_is_a, bn, st);
   }
-  return out_bf16 ? wide_by_role<true, float, __nv_bfloat16>(x, K, out, w, x_is_a, st)
-                  : wide_by_role<true, float, float>(x, K, out, w, x_is_a, st);
+  return out_bf16 ? wide_by_role<true, float, __nv_bfloat16>(x, K, out, w, x_is_a, bn, st)
+                  : wide_by_role<true, float, float>(x, K, out, w, x_is_a, bn, st);
 }

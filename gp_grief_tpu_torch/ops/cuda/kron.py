@@ -21,7 +21,9 @@ launches (one per pass) and nothing else.  The backward pass is the vector-
 Jacobian product of the exact plain chain, as in the JAX package's custom
 VJPs: the TPU kernels had no backward kernel either.
 
-Grades (``precision``): ``"highest"`` is exact f32; ``"default"`` rounds
+Grades (``precision``): ``"highest"`` is float32-accurate (FP32 FMA in
+the tile member, 3xTF32 tensor-core products in the wide member, whose
+products round differently from the plain chain's); ``"default"`` rounds
 every operand of every contraction to bf16 and accumulates in f32.  A bf16
 input vector forces ``"default"`` and gives a bf16 result.
 
@@ -35,10 +37,13 @@ derived for Hopper are later work.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence
 
 import torch
+
+from gp_grief_tpu_torch.ops.cuda._build import load_library
 
 __all__ = [
     "kron_chain_ref",
@@ -220,6 +225,13 @@ def _fused_schedule(ms: Sequence[int], outs: Sequence[int], B: int, itemsize: in
     return mid_groups, tail_start
 
 
+@functools.lru_cache(maxsize=256)
+def _fused_feasible(ms: tuple, outs: tuple, B: int, itemsize: int) -> bool:
+    """Whether :func:`_fused_schedule` plans these shapes; cached, as
+    :func:`kron_matvec_fused` asks on every call."""
+    return _fused_schedule(ms, outs, B, itemsize) is not None
+
+
 def fused_schedule_applicable(
     factors: Sequence[torch.Tensor],
     B: int = 1,
@@ -305,16 +317,52 @@ _TILE_MAX_GROUP = 3
 _SMEM_LIMIT = 232448  # bytes of shared memory a block can use on sm_90
 _TILE_MAX_P = 128
 _COALESCED_P = 32  # 128-byte rows of f32: the least run worth a global load
+# csrc TWO_BLOCK_SMEM: a tile block of at most this many bytes leaves room
+# for a second resident block on an SM (228 KB shared by the blocks, 1 KB
+# reserved for each) and runs 256 threads, each taking two fibres at a time.
+_TWO_BLOCK_SMEM = 233472 // 2 - 1024
+_TILE_FIBRES = 2 * 256
+_TILE_MIN_BATCHES = 2 * 132  # two resident blocks on each of an H100's SMs
+_WIDE_TILE_N = (64, 128)  # csrc: output-tile widths of the wide member
 
 
-def _tile_smem_bytes(ns, outs, P: int) -> int:
-    """Shared memory of one tile-pass block; the same arithmetic as
-    ``gp_grief_kron_tile_pass`` in csrc/kron_pass.cu."""
+def _tile_smem_bytes(ns, outs, P: int, R: int = 1) -> int:
+    """Shared memory of one tile-pass block staging ``R`` rows of ``pre``;
+    the same arithmetic as ``gp_grief_kron_tile_pass`` in
+    csrc/kron_pass.cu."""
     ext = [max(n, o) for n, o in zip(ns, outs)] + ([P] if P > 1 else [])
     ext[-1] |= 1  # odd innermost extent: fibres along it fall in distinct banks
-    tile = math.prod(ext)
+    tile = R * math.prod(ext)
     floats = -(-tile // 4) * 4 + sum(o * (-(-n // 4) * 4) for n, o in zip(ns, outs))
     return 4 * floats
+
+
+def _tile_rows(ns, outs, P: int, post: int, pre: int) -> int:
+    """Rows of ``pre`` a tile-pass block stages at once.  Only a pass whose
+    ``P`` columns cover the whole trailing extent batches rows (``R``
+    consecutive rows are then one contiguous run).  ``R`` doubles until every
+    contraction of the group has ``_TILE_FIBRES`` fibres (two for each of a
+    block's 256 threads), as long as the tile still leaves room for a second
+    resident block and ``pre`` still gives every resident block a batch."""
+    if P != post:
+        return 1
+
+    def fibres(R):  # the fewest fibres of any of the group's contractions, last axis first
+        return R * P * min(math.prod(ns[:t]) * math.prod(outs[t + 1 :]) for t in range(len(ns)))
+
+    R = 1
+    while (fibres(R) < _TILE_FIBRES and pre >= 2 * R * _TILE_MIN_BATCHES
+           and _tile_smem_bytes(ns, outs, P, 2 * R) <= _TWO_BLOCK_SMEM):
+        R *= 2
+    return R
+
+
+def _wide_tile(o: int, post: int) -> int:
+    """Output-tile width of a wide pass: 64 when the output's width is at
+    most 64 (``o`` when the axis is last, else ``post``), so that no half of
+    a tile computes zeros; else 128."""
+    width = o if post == 1 else post
+    return _WIDE_TILE_N[0] if width <= _WIDE_TILE_N[0] else _WIDE_TILE_N[1]
 
 
 def _tile_columns(ns, outs, post: int) -> int:
@@ -383,68 +431,97 @@ def kron_chain_ref(factors: Sequence[torch.Tensor], v: torch.Tensor, *, fast: bo
     return x.reshape(-1, B).to(v.dtype)
 
 
-def _launch(which, factors, v: torch.Tensor, fast: bool, mid_dtype, *, lead: int = 1, plan=None) -> torch.Tensor:
+@functools.lru_cache(maxsize=512)
+def _passes(ms: tuple, outs: tuple, B: int, lead: int, plan: tuple | None) -> tuple:
+    """The launches of a pass plan (``plan`` defaults to
+    :func:`_hopper_plan`), as ``(i, j, out_shape, wide, args)``: ``args``
+    are the shape arguments of ``gp_grief_kron_wide_pass`` (``n, o, pre,
+    post, tile width``) or ``gp_grief_kron_tile_pass`` (``g, n0..n2,
+    o0..o2, pre, post, P, R``).  Cached: the wrappers run in solver loops."""
+    plan = plan or _hopper_plan(ms, outs, B)
+    cur = list(ms)
+    out = []
+    for i, j, P in plan:
+        pre, post = lead * math.prod(cur[:i]), math.prod(cur[j + 1 :]) * B
+        if P == 0:
+            args = (ms[i], outs[i], pre, post, _wide_tile(outs[i], post))
+        else:
+            pad = (1,) * (3 - (j - i + 1))
+            R = _tile_rows(ms[i : j + 1], outs[i : j + 1], P, post, pre)
+            args = (j - i + 1, *ms[i : j + 1], *pad, *outs[i : j + 1], *pad, pre, post, P, R)
+        out.append((i, j, (pre, *outs[i : j + 1], post), P == 0, args))
+        cur[i : j + 1] = outs[i : j + 1]
+    return tuple(out)
+
+
+def _launch(which, factors, v: torch.Tensor, fast: bool, mid_dtype, B: int, *, lead: int = 1, plan=None) -> torch.Tensor:
     """Run a pass plan on the card, one launch per pass: ``(I_lead ⊗ (⊗
-    K_d)) · v`` for ``v`` ``(lead·M, B)``.  ``plan`` defaults to
-    :func:`_hopper_plan`."""
+    K_d)) · v`` for a contiguous ``v`` of ``lead·M·B`` elements, read as
+    ``(lead·M, B)``.  ``plan`` (a tuple of passes) defaults to
+    :func:`_hopper_plan`.  Returns the last pass's output, ``(pre,
+    o_i..o_j, post)``: the caller reshapes it."""
     name = which.__name__
-    if any(K.dtype != torch.float32 for K in factors):
-        raise TypeError(f"{name} kernel takes float32 factors, got {[K.dtype for K in factors]}")
+    for K in factors:
+        if K.dtype != torch.float32:
+            raise TypeError(f"{name} kernel takes float32 factors, got {[K.dtype for K in factors]}")
     if v.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name} kernel takes a float32 or bfloat16 vector, got {v.dtype}")
     if not (v.is_contiguous() and all(K.is_contiguous() for K in factors)):
         raise ValueError(f"{name} kernel needs contiguous factors and vector")
-    from gp_grief_tpu_torch.ops.cuda._build import load_library
-
     lib = load_library()
-    ms = [int(K.shape[1]) for K in factors]
-    outs = [int(K.shape[0]) for K in factors]
-    B = int(v.shape[1])
-    plan = plan or _hopper_plan(ms, outs, B)
-    cur = list(ms)
+    ms = tuple(K.shape[1] for K in factors)
+    outs = tuple(K.shape[0] for K in factors)
+    passes = _passes(ms, outs, B, lead, plan)
     x = v
-    with torch.cuda.device(v.device):
-        stream = torch.cuda.current_stream(v.device).cuda_stream
-        for step, (i, j, P) in enumerate(plan):
-            last = step == len(plan) - 1
-            odt = v.dtype if last else (mid_dtype or torch.float32)
-            pre, post = lead * math.prod(cur[:i]), math.prod(cur[j + 1 :]) * B
-            shape = (pre, *outs[i : j + 1], post)
-            out = torch.empty(shape, dtype=odt, device=v.device)
-            flags = (int(fast), int(x.dtype == torch.bfloat16), int(odt == torch.bfloat16))
-            if P == 0:
-                err = lib.gp_grief_kron_wide_pass(
-                    x.data_ptr(), out.data_ptr(), factors[i].data_ptr(), ms[i], outs[i], pre, post,
-                    *flags, stream,
-                )
-            else:
-                Ks = [factors[a].data_ptr() for a in range(i, j + 1)] + [0] * (3 - (j - i + 1))
-                ns = ms[i : j + 1] + [1] * (3 - (j - i + 1))
-                os_ = outs[i : j + 1] + [1] * (3 - (j - i + 1))
-                err = lib.gp_grief_kron_tile_pass(
-                    x.data_ptr(), out.data_ptr(), *Ks, j - i + 1, *ns, *os_, pre, post, P, *flags, stream,
-                )
-            if err != 0:
-                what = "a shape the kernel does not take" if err == _ERR_SHAPE else "CUDA error"
-                raise RuntimeError(
-                    f"{name} pass over factors {i}..{j} of {tuple(ms)} (B={B}, lead={lead}; pass input "
-                    f"{(pre, *cur[i : j + 1], post)}) failed: {what} {err}"
-                )
-            which.launches += 1
-            cur[i : j + 1] = outs[i : j + 1]
-            x = out
-    return x.reshape(-1, B)
+    # The current stream's handle, as torch.cuda.current_stream(v.device)
+    # .cuda_stream gives it without building a Stream object on every call.
+    dev = v.device
+    device = dev.index
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    for step, (i, j, out_shape, wide, args) in enumerate(passes):
+        last = step == len(passes) - 1
+        odt = v.dtype if last else (mid_dtype or torch.float32)
+        out = torch.empty(out_shape, dtype=odt, device=dev)
+        flags = (int(fast), int(x.dtype == torch.bfloat16), int(odt == torch.bfloat16))
+        if wide:
+            err = lib.gp_grief_kron_wide_pass(
+                x.data_ptr(), out.data_ptr(), factors[i].data_ptr(), *args, *flags, device, stream
+            )
+        else:
+            Ks = [factors[a].data_ptr() for a in range(i, j + 1)] + [0] * (3 - (j - i + 1))
+            err = lib.gp_grief_kron_tile_pass(x.data_ptr(), out.data_ptr(), *Ks, *args, *flags, device, stream)
+        if err != 0:
+            what = "a shape the kernel does not take" if err == _ERR_SHAPE else "CUDA error"
+            raise RuntimeError(
+                f"{name} pass over factors {i}..{j} of {ms} (B={B}, lead={lead}; pass output "
+                f"{out_shape}) failed: {what} {err}"
+            )
+        which.launches += 1
+        x = out
+    return x
+
+
+def _forward(which, factors, v: torch.Tensor, fast: bool, mid_dtype) -> torch.Tensor:
+    if v.is_cuda:
+        return _launch(which, factors, v, fast, mid_dtype, v.shape[1]).reshape(-1, v.shape[1])
+    if v.device.type == "cpu":
+        return kron_chain_ref(factors, v, fast=fast)
+    raise ValueError(f"{which.__name__}: no kernel for device {v.device}")
+
+
+def _apply(which, fast: bool, mid_dtype, v: torch.Tensor, factors) -> torch.Tensor:
+    """``(⊗ K_d) · v`` through :class:`_KronMatvec` where autograd records
+    it, else its forward alone (a solver's matvec: no graph to build)."""
+    if torch.is_grad_enabled() and (v.requires_grad or any(K.requires_grad for K in factors)):
+        return _KronMatvec.apply(which, fast, mid_dtype, v, *factors)
+    return _forward(which, factors, v, fast, mid_dtype)
 
 
 class _KronMatvec(torch.autograd.Function):
     @staticmethod
     def forward(ctx, which, fast, mid_dtype, v, *factors):
         ctx.save_for_backward(v, *factors)
-        if v.device.type == "cuda":
-            return _launch(which, factors, v, fast, mid_dtype)
-        if v.device.type == "cpu":
-            return kron_chain_ref(factors, v, fast=fast)
-        raise ValueError(f"{which.__name__}: no kernel for device {v.device}")
+        return _forward(which, factors, v, fast, mid_dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -493,7 +570,7 @@ def kron_matvec_slab(
         raise ValueError(f"mid_dtype must be None or torch.bfloat16, got {mid_dtype}")
     squeeze = v.ndim == 1
     vv = v[:, None] if squeeze else v
-    out = _KronMatvec.apply(kron_matvec_slab, _grade(precision, v), mid_dtype, vv, *factors)
+    out = _apply(kron_matvec_slab, _grade(precision, v), mid_dtype, vv, factors)
     return out[:, 0] if squeeze else out
 
 
@@ -508,13 +585,13 @@ def kron_matvec_fused(
     ``(M, B)``.  Differentiable."""
     _check("kron_matvec_fused", factors, v)
     B = 1 if v.ndim == 1 else int(v.shape[1])
-    ms = [int(K.shape[1]) for K in factors]
-    outs = [int(K.shape[0]) for K in factors]
-    if _fused_schedule(ms, outs, B, int(factors[0].dtype.itemsize)) is None:
+    ms = tuple(int(K.shape[1]) for K in factors)
+    outs = tuple(int(K.shape[0]) for K in factors)
+    if not _fused_feasible(ms, outs, B, int(factors[0].dtype.itemsize)):
         raise ValueError("kron_matvec_fused: no feasible plan (gate with fused_schedule_applicable)")
     squeeze = v.ndim == 1
     vv = v[:, None] if squeeze else v
-    out = _KronMatvec.apply(kron_matvec_fused, _grade(precision, v), None, vv, *factors)
+    out = _apply(kron_matvec_fused, _grade(precision, v), None, vv, factors)
     return out[:, 0] if squeeze else out
 
 

@@ -15,7 +15,7 @@ Counterparts of three public entry points and pass kernels of
 On Hopper these are the same contractions as K2 and K3, so they launch the
 same two hand-written members of ``csrc/kron_pass.cu`` (the tile member for
 groups of up to three axes of at most 64 points, the wide member, a
-register-blocked SIMT GEMM, for wider axes), planned by
+tensor-core GEMM, for wider axes), planned by
 :func:`~gp_grief_tpu_torch.ops.cuda.kron._hopper_plan`.  What differs from
 K2/K3 is what each entry takes and its launch counter.  The TPU kernels'
 per-factor order, their ``post >= 128 or pre == 1`` test, the narrow-tail
@@ -33,7 +33,8 @@ Each entry checks its operands and then
   ``RuntimeError`` naming the shape for a pass a member does not take).  It
   never falls back to the plain version on the card.
 
-Grades: ``"highest"`` is exact f32 (FP32 FMA); ``"default"`` rounds every
+Grades: ``"highest"`` is float32-accurate (FP32 FMA in the tile member,
+3xTF32 tensor-core products in the wide one); ``"default"`` rounds every
 operand of every contraction to bf16 and accumulates in f32, standing for
 the TPU's one-pass bf16 DEFAULT.  A bf16 input forces ``"default"`` and gives
 a bf16 result.  K7 is differentiable (the backward pass is the exact plain
@@ -47,7 +48,7 @@ from typing import Sequence
 
 import torch
 
-from gp_grief_tpu_torch.ops.cuda.kron import _check, _grade, _KronMatvec, _launch, kron_chain_ref
+from gp_grief_tpu_torch.ops.cuda.kron import _apply, _check, _grade, _launch, kron_chain_ref
 
 __all__ = [
     "kron_matmat_cuda",
@@ -68,7 +69,7 @@ def kron_matmat_cuda(factors: Sequence[torch.Tensor], v: torch.Tensor, *, precis
     _check("kron_matmat_cuda", factors, v)
     squeeze = v.ndim == 1
     vv = v[:, None] if squeeze else v
-    out = _KronMatvec.apply(kron_matmat_cuda, _grade(precision, v), None, vv, *factors)
+    out = _apply(kron_matmat_cuda, _grade(precision, v), None, vv, factors)
     return out[:, 0] if squeeze else out
 
 
@@ -81,21 +82,23 @@ def kron_matvec_cuda(factors: Sequence[torch.Tensor], v: torch.Tensor, *, precis
     return kron_matmat_cuda(factors, v, precision=precision)
 
 
-def _axes_pass(which, factors, x: torch.Tensor, lead: int, precision: str, plain, plan=None) -> torch.Tensor:
+def _axes_pass(which, factors, x: torch.Tensor, lead: int, precision: str, plain, shape, plan=None) -> torch.Tensor:
     """``(I_lead ⊗ (⊗ K_d))`` applied to ``x`` (lead rows, the contracted
     axes trailing), forward only: the kernels on a CUDA ``x``, ``plain(x,
-    fast)`` on a CPU one.  Returns a flat ``(lead·Π o_d,)`` tensor."""
-    if any(K.ndim != 2 for K in factors):
-        raise ValueError(f"{which.__name__}: factors must be matrices")
-    if any(K.device != x.device for K in factors):
-        raise ValueError(f"{which.__name__}: factors and input on different devices")
+    fast)`` on a CPU one.  Returns the result in ``shape``."""
+    device = x.device
+    for K in factors:
+        if K.ndim != 2:
+            raise ValueError(f"{which.__name__}: factors must be matrices")
+        if K.device != device:
+            raise ValueError(f"{which.__name__}: factors and input on different devices")
     fast = _grade(precision, x)
-    with torch.no_grad():
-        if x.device.type == "cuda":
-            return _launch(which, factors, x.reshape(-1, 1), fast, None, lead=lead, plan=plan)[:, 0]
-        if x.device.type == "cpu":
-            return plain(x, fast).reshape(-1)
-    raise ValueError(f"{which.__name__}: no kernel for device {x.device}")
+    if x.is_cuda:  # the launches build no autograd graph
+        return _launch(which, factors, x, fast, None, 1, lead=lead, plan=plan).reshape(shape)
+    if device.type == "cpu":
+        with torch.no_grad():
+            return plain(x, fast).reshape(shape)
+    raise ValueError(f"{which.__name__}: no kernel for device {device}")
 
 
 def last_slab_pass(x2: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
@@ -104,10 +107,9 @@ def last_slab_pass(x2: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     (``C = X·Wᵀ``).  Counterpart of ``kron_pallas.py:46 last_slab_pass``."""
     if x2.ndim != 2 or W.ndim != 2 or W.shape[1] != x2.shape[1]:
         raise ValueError(f"last_slab_pass: x2 (N, S) and W (S', S), got {tuple(x2.shape)} and {tuple(W.shape)}")
-    N = int(x2.shape[0])
-    out = _axes_pass(last_slab_pass, [W], x2, N, "highest", lambda x, fast: last_slab_pass_ref(x, W, fast=fast),
-                     plan=[(0, 0, 0)])
-    return out.reshape(N, int(W.shape[0]))
+    N = x2.shape[0]
+    return _axes_pass(last_slab_pass, [W], x2, N, "highest", lambda x, fast: last_slab_pass_ref(x, W, fast=fast),
+                      (N, W.shape[0]), plan=((0, 0, 0),))
 
 
 def last_slab_pass_ref(x2: torch.Tensor, W: torch.Tensor, *, fast: bool = False) -> torch.Tensor:
@@ -124,9 +126,9 @@ def _tail(which, x: torch.Tensor, Ks, precision: str) -> torch.Tensor:
     g = len(Ks)
     if x.ndim != g + 1 or tuple(x.shape[1:]) != tuple(int(K.shape[1]) for K in Ks):
         raise ValueError(f"{which.__name__}: x {tuple(x.shape)} does not match factors {[tuple(K.shape) for K in Ks]}")
-    N = int(x.shape[0])
-    out = _axes_pass(which, Ks, x, N, precision, lambda xx, fast: _tail_ref(xx, Ks, fast))
-    return out.reshape(N, *(int(K.shape[0]) for K in Ks))
+    N = x.shape[0]
+    return _axes_pass(which, Ks, x, N, precision, lambda xx, fast: _tail_ref(xx, Ks, fast),
+                      (N, *(K.shape[0] for K in Ks)))
 
 
 def tail3_pass(x4: torch.Tensor, K3: torch.Tensor, K4: torch.Tensor, K5: torch.Tensor, *,

@@ -264,6 +264,83 @@ def test_hopper_plans():
                 assert tcuda._tile_smem_bytes(ms[i : j + 1], ms[i : j + 1], P) <= tcuda._SMEM_LIMIT
 
 
+def _pass_of(ms, B, lead=1, index=0):
+    """(ns, outs, P, post, pre) of pass ``index`` of the plan for square
+    factors ``ms`` at batch ``B`` over ``lead`` leading rows."""
+    plan = tcuda._hopper_plan(list(ms), list(ms), B)
+    i, j, P = plan[index]
+    cur = list(ms)
+    return list(ms[i : j + 1]), list(ms[i : j + 1]), P, math.prod(cur[j + 1 :]) * B, lead * math.prod(cur[:i])
+
+
+# (case, pass as _pass_of gives it, rows a block stages), worked by hand:
+# fibres of the fewest-fibre contraction = R·P·(other axes), doubled R until
+# 512 (two for each of 256 threads) while the tile stays <= 115,712 bytes and
+# pre keeps at least 264 batches (two blocks on each of 132 SMs).
+TILE_ROWS_CASES = [
+    # tail2_pass at (32768, 32, 32): 32 fibres a row -> R = 16, a 16·32·33
+    # float tile + two 32x32 factors = 75,776 bytes.
+    ("tail2_32768", _pass_of((32, 32), 1, lead=32768), 16),
+    # K7 at 32^5, B = 8, first pass (3, 4, P = 8), pre 32768: 256 fibres a
+    # row -> R = 2, 2·32·32·9 floats + factors = 81,920 bytes.
+    ("k7_32x5_B8_first", _pass_of((32,) * 5, 8), 2),
+    # SKI's lattice K2 at 32^4, B = 8, first pass (2, 3, P = 8), pre 1024.
+    ("ski_lattice_32x4_B8_first", _pass_of((32,) * 4, 8), 2),
+    # The 144 KB tiles: K2's first pass at 32^5 and tail3_pass (g = 3, P = 1).
+    ("k2_32x5_first", _pass_of((32,) * 5, 1), 1),
+    ("tail3_1024", _pass_of((32,) * 3, 1, lead=1024), 1),
+    # K2's second pass at 32^5: P = 32 of post = 32768 columns, no batching.
+    ("k2_32x5_second", _pass_of((32,) * 5, 1, index=1), 1),
+    # pre smaller than the R the fibres ask for (16): one row a block, so
+    # that the three rows keep three blocks busy.
+    ("tail2_pre3", _pass_of((32, 32), 1, lead=3), 1),
+    # 4097 rows: R = 8 leaves 513 batches (the last ragged), 16 would leave 257.
+    ("tail2_pre4097", _pass_of((32, 32), 1, lead=4097), 8),
+    # K7's rectangular pass (1, 2, P = 8) at pre 80: batching would leave 40
+    # blocks for 132 SMs.
+    ("k7_rect_80", ([32, 32], [24, 40], 8, 8, 80), 1),
+]
+
+
+@pytest.mark.parametrize("case,args,R", TILE_ROWS_CASES, ids=[c[0] for c in TILE_ROWS_CASES])
+def test_tile_rows(case, args, R):
+    ns, outs, P, post, pre = args
+    assert tcuda._tile_rows(ns, outs, P, post, pre) == R
+    smem = tcuda._tile_smem_bytes(ns, outs, P, R)
+    assert smem <= tcuda._SMEM_LIMIT
+    if R > 1:
+        assert P == post and smem <= tcuda._TWO_BLOCK_SMEM
+
+
+def test_tile_smem_bytes_by_hand():
+    """tail2_pass's R = 16 block: a 16·32·33-float tile and two 32x32 factors."""
+    assert tcuda._tile_smem_bytes([32, 32], [32, 32], 1, 16) == 4 * (16 * 32 * 33 + 2 * 32 * 32)
+    assert tcuda._tile_smem_bytes([32, 32], [32, 32], 1) == 4 * (32 * 33 + 2 * 32 * 32)
+    # One axis of 3 points to 5 outputs: a 5-float row (odd already), R rows
+    # rounded up to 4 floats, then the factor's 5 rows of 4 (3 padded).
+    assert tcuda._tile_smem_bytes([3], [5], 1) == 4 * (8 + 20)
+    assert tcuda._tile_smem_bytes([3], [5], 1, 3) == 4 * (16 + 20)
+    assert tcuda._TWO_BLOCK_SMEM == 115712
+
+
+# (o, post, output-tile width): the wide member's C = X·Kᵀ role takes o as
+# its output width (post = 1), the C_p = K·X_p role post.
+WIDE_TILE_CASES = [
+    (64, 1, 64),  # K6 at (699,051 x 48) -> 64: no half-empty 128-wide tile
+    (72, 1, 128),  # K6 with So = 72
+    (128, 1, 128),  # K6 at (262,144 x 128)·(I_4 ⊗ K_32)ᵀ
+    (512, 1, 128),  # K3's (2, 2, 0) pass at 8x512x512
+    (512, 512, 128),  # K3's (1, 1, 0) pass: C_p role, post 512
+    (96, 50, 64),  # C_p role with post 50
+    (96, 7680, 128),  # K7's rectangular wide pass at B = 8
+]
+
+
+@pytest.mark.parametrize("o,post,width", WIDE_TILE_CASES)
+def test_wide_tile(o, post, width):
+    assert tcuda._wide_tile(o, post) == width
+
+
 @pytest.mark.parametrize("which", ["slab", "fused"])
 def test_wrapper_vjp_matches_jax(which):
     """The wrappers' backward is the plain chain's VJP, as the JAX custom VJP."""

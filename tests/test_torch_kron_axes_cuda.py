@@ -4,7 +4,9 @@ Marked ``cuda``; without a CUDA device every test skips.  On a GPU machine
 without jax run ``python -m pytest --noconftest tests/test_torch_kron_axes_cuda.py``
 (``tests/conftest.py`` imports jax; this file does not).  Shapes: chip_smoke.py
 phase 10's cases shrunk eightfold, a rectangular tail with o > n, a tail with
-an axis wider than 64 (a chain of a tile and a wide pass) and an odd N for K6.
+an axis wider than 64 (a chain of a tile and a wide pass) and an odd N for K6;
+the edges of the tile member's row batches and of the wide member's tiles,
+chunks and copy widths; bf16 in and out of the wide member.
 """
 
 import math
@@ -52,6 +54,10 @@ K7_CASES = [  # (factor shapes (o, m), B)
     ([(32, 32)] * 4 + [(4, 4)], 8),
     ([(48, 40), (12, 16), (20, 16)], 8),  # rectangular, o != m
     ([(96, 80), (24, 32), (40, 32)], 1),  # an axis wider than 64: a wide pass
+    # The wide member's C_p = K·X_p role with post ragged against its tile:
+    ([(96, 80), (50, 50)], 1),  # post 50 in a 64-wide tile
+    ([(96, 80), (20, 10)], 10),  # post 200 in 128-wide tiles
+    ([(70, 200), (8, 8)], 3),  # depth 200: not a multiple of the 16-deep chunk
 ]
 
 
@@ -85,7 +91,11 @@ def test_kron_matmat_gradient_matches_plain_chain(cuda):
         assert _rel(a, b) < 1e-5
 
 
-@pytest.mark.parametrize("N,S,So", [(32768, 128, 128), (4097, 48, 64), (1000, 200, 72)])
+@pytest.mark.parametrize("N,S,So", [
+    (32768, 128, 128), (4097, 48, 64), (1000, 200, 72),
+    (4097, 50, 64), (4097, 50, 72),  # rows of 50 floats: 4-byte copies, a ragged last chunk
+    (3, 80, 64), (129, 128, 65),  # fewer rows than a tile; a ragged output tile
+])
 def test_last_slab_pass_matches_plain_version(cuda, N, S, So):
     g = torch.Generator().manual_seed(3)
     x2 = _randn((N, S), g).to(cuda, torch.float32)
@@ -125,6 +135,55 @@ def test_tail_passes_match_plain_version(cuda, N, shapes, precision):
     assert _rel(got, ref(x, *Ks, precision=precision)) < TOL[precision]
     exact = ref(x.double(), *[K.double() for K in Ks])
     assert _rel(got, exact) < VS_EXACT[precision]
+
+
+@pytest.mark.parametrize("g", [2, 3])
+@pytest.mark.parametrize("rows", ["3", "4097", "two_waves"])
+def test_tail_passes_at_row_batch_edges(cuda, g, rows):
+    """The tile member's row batches: fewer rows than a batch, a ragged last
+    batch, and an exact multiple of one resident wave (blocks per SM × SMs ×
+    rows per block; tail2_pass batches 16 rows, tail3_pass's 144 KB tile 1)."""
+    Ks = _factors([(32, 32)] * g, cuda, seed=7)
+    R = tk._tile_rows([32] * g, [32] * g, 1, 1, 1 << 20)
+    per_sm = 2 if R > 1 else 1
+    N = {"3": 3, "4097": 4097}.get(rows) or 2 * R * per_sm * torch.cuda.get_device_properties(cuda).multi_processor_count
+    x = _randn((N,) + (32,) * g, torch.Generator().manual_seed(8)).to(cuda, torch.float32)
+    fn, ref = (ka.tail3_pass, ka.tail3_pass_ref) if g == 3 else (ka.tail2_pass, ka.tail2_pass_ref)
+    for precision in ("highest", "default"):
+        got = fn(x, *Ks, precision=precision)
+        again = fn(x, *Ks, precision=precision)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again) and got.shape == x.shape
+        assert _rel(got, ref(x, *Ks, precision=precision)) < TOL[precision]
+        assert _rel(got, ref(x.double(), *[K.double() for K in Ks])) < VS_EXACT[precision]
+
+
+# Wide passes with a bf16 vector in and a bf16 result out, at "default":
+# (entry, factor shapes (o, m) or W's, input shape).  Rows of 48 bf16 take
+# 16-byte copies, of 50 4-byte copies, of 49 element-wise loads.
+WIDE_BF16_CASES = [
+    ("last_slab_pass", [(64, 48)], (4097, 48)),
+    ("last_slab_pass", [(72, 50)], (1000, 50)),
+    ("last_slab_pass", [(64, 49)], (1000, 49)),
+    ("kron_matmat_cuda", [(32, 32), (96, 80)], (32 * 80, 4)),  # C_p role first: x_p bf16 in
+    ("kron_matmat_cuda", [(96, 80), (32, 32)], (80 * 32, 1)),  # C_p role last: bf16 out
+]
+
+
+@pytest.mark.parametrize("entry,shapes,xshape", WIDE_BF16_CASES)
+def test_wide_pass_bf16_in_and_out(cuda, entry, shapes, xshape):
+    fs = _factors(shapes, cuda, seed=9)
+    x = _randn(xshape, torch.Generator().manual_seed(10)).to(cuda, torch.bfloat16)
+    if entry == "last_slab_pass":
+        run = lambda: ka.last_slab_pass(x, fs[0])  # noqa: E731
+        want = ka.last_slab_pass_ref(x.float(), fs[0], fast=True)
+    else:
+        run = lambda: ka.kron_matmat_cuda(fs, x, precision="default")  # noqa: E731
+        want = tk.kron_chain_ref(fs, x.float(), fast=True)
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    assert _rel(got, want) < 1e-2  # the kernel rounds its result to bf16 once more
 
 
 def test_bf16_input_gives_bf16(cuda):

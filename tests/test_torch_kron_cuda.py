@@ -57,6 +57,10 @@ CASES = [  # (wrapper, sizes, outs, B)
     ("fused", (96, 128), None, 1),
     ("fused", (20, 28, 96), (17, 30, 100), 1),
     ("fused", (8, 64, 100), None, 128),
+    # Wide passes whose depth is not a multiple of the 16-deep chunk (80,
+    # 200) and whose C_p role has post ragged against a 128-wide tile (100).
+    ("fused", (12, 200), (10, 120), 1),
+    ("fused", (6, 80, 100), None, 1),
 ]
 
 
@@ -68,8 +72,10 @@ def test_kernel_matches_plain_version(cuda, which, sizes, outs, B, precision):
     fn = tk.kron_matvec_slab if which == "slab" else tk.kron_matvec_fused
     before = fn.launches
     got = fn(fs, v, precision=precision)
+    again = fn(fs, v, precision=precision)
     torch.cuda.synchronize()
-    assert fn.launches - before == len(tk._hopper_plan(list(sizes), list(outs), B))
+    assert fn.launches - before == 2 * len(tk._hopper_plan(list(sizes), list(outs), B))
+    assert torch.equal(got, again)
     fast = precision == "default"
     plain = tk.kron_chain_ref(fs, v, fast=fast)
     exact = tk.kron_chain_ref([f.double() for f in fs], v.double())
