@@ -145,6 +145,23 @@ def card_info() -> str:
     return out[0] if out else ""
 
 
+def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Device time of one call of ``fn`` in milliseconds: the ``torch.profiler``
+    sum of its kernels over ``reps`` calls, divided by ``reps``.  Beside
+    :func:`cuda_ms` it shows how much of a call's event time is the host's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return device_items(prof)[0] / reps
+
+
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Median CUDA-event time of ``fn`` in milliseconds."""
     import torch
@@ -463,6 +480,9 @@ KRON_SHAPES = [
     ("kron_slab", "grid32x5", (32,) * 5, 1),
     ("kron_slab", "d5_4x16x8x16x8", (4, 16, 8, 16, 8), 1),
     ("kron_fused", "grid8x512x512", (8, 512, 512), 1),
+    # Two 1024-deep wide passes: the exact grade's 3xTF32 error grows with
+    # the depth, and the copied gate sends (I_8, 1024^2) to K3.
+    ("kron_fused", "depth1024_8x1024x1024", (8, 1024, 1024), 1),
     ("kron_fused", "ragged_d2_96x128", (96, 128), 1),
 ]
 # Relative norm error of a kernel against its plain version (same contraction
@@ -527,6 +547,7 @@ def phase_kron(card: str) -> dict:
                 check(tuple(got.shape) == (M, B) and bool(torch.isfinite(got).all()), f"{kname} {label}: bad output")
                 it = iter(range(1 << 30))
                 ms = cuda_ms(lambda: fn(fs, vs[next(it) % nv], **kw))
+                dev_ms = device_ms(lambda: fn(fs, vs[next(it) % nv], **kw))
                 plain_ms = cuda_ms(lambda: tk.kron_chain_ref(fs, vs[next(it) % nv], fast=fast))
                 chain_ms = cuda_ms(lambda: kron_matvec_fast(fs, vs[next(it) % nv], precision=precision, impl="xla"))
                 library_ms = cuda_ms(lambda: kron_einsum(fs, vs[next(it) % nv]))
@@ -534,7 +555,7 @@ def phase_kron(card: str) -> dict:
             emit({"phase": "kron", "kernel": kname, "shape": label, "sizes": list(sizes), "B": B,
                   "precision": precision, "passes": len(tk._hopper_plan(list(sizes), list(sizes), B)),
                   "rel_err_vs_plain": rel, "tol": KRON_TOL[precision], "rel_err_vs_exact": rel_exact,
-                  "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, "chain_ms": chain_ms,
+                  "max_abs_err": abs_err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "chain_ms": chain_ms,
                   "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                   "gb_per_s": 2 * M * B * 4 / (ms * 1e-3) / 1e9,
                   "distinct_vectors": nv, "card": card})
@@ -544,8 +565,8 @@ def phase_kron(card: str) -> dict:
             entry["max_abs_err"] = max(entry["max_abs_err"], abs_err)
             # The line's times: each kernel at its grid configuration's grade.
             if (label, precision) in (("grid32x5", "default"), ("grid8x512x512", "highest")):
-                entry.update(ms=ms, plain_ms=plain_ms, chain_ms=chain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                             bound_by=bound_by)
+                entry.update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, chain_ms=chain_ms, library_ms=library_ms,
+                             bound_ms=bound_ms, bound_by=bound_by)
         del fs, vs
         torch.cuda.empty_cache()
     return summary
@@ -825,6 +846,7 @@ def phase_ski_kernels(card: str) -> dict:
                 identical = bool(torch.equal(got, again))
                 finite = tuple(got.shape) == (B, M) and bool(torch.isfinite(got).all())
                 ms = cuda_ms(fn)
+                dev_ms = device_ms(fn)
                 plain_ms = cuda_ms(plain)
                 library_ms = cuda_ms(lambda: torch.sparse.mm(lib_mat, lib_rhs))
             t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_FLOPS["highest"]
@@ -832,8 +854,8 @@ def phase_ski_kernels(card: str) -> dict:
             emit({"phase": "ski_kernel", "kernel": kname, "shape": label, "grid": list(iw.shape), "M": M, "B": B,
                   "dtype": tag, **extra, "max_rel_err": rel, "max_abs_err": abs_err, "tol": SKI_KERNEL_TOL[tag],
                   "tol_reason": "relative to the output's largest magnitude", "library_rel_err": rel_lib,
-                  "two_launches_identical": identical, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                  "library": "torch.sparse.mm (CSR)", "bound_ms": bound_ms, "bound_by": bound_by,
+                  "two_launches_identical": identical, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                  "library_ms": library_ms, "library": "torch.sparse.mm (CSR)", "bound_ms": bound_ms, "bound_by": bound_by,
                   "gb_per_s": nbytes / (ms * 1e-3) / 1e9, "card": card})
             check(finite, f"{kname} {label} {tag}: bad output")
             check(rel <= SKI_KERNEL_TOL[tag], f"{kname} {label} {tag}: rel err {rel:.3e} vs plain")
@@ -842,8 +864,8 @@ def phase_ski_kernels(card: str) -> dict:
             if tag == "float32":
                 entry["max_abs_err"] = max(entry["max_abs_err"], abs_err)
                 if label in SKI_CONFIGS:
-                    entry.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                                 bound_by=bound_by)
+                    entry.update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms,
+                                 bound_ms=bound_ms, bound_by=bound_by)
             del got, again, ref, lib, lib_mat, lib_rhs
             torch.cuda.empty_cache()
     return summary
@@ -924,7 +946,7 @@ def phase_ski(card: str, name: str, ref64: dict) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launched = {k: v - before[k] for k, v in counts().items()}
-    device_ms, items = device_items(prof)
+    dev_total, items = device_items(prof)
     info = model.cg_info
     # (c) predict: the mean at 10,000 points, exact variances at 256, each
     # against the float64 model's at the same points.
@@ -944,8 +966,8 @@ def phase_ski(card: str, name: str, ref64: dict) -> dict:
            "var_rel_err_vs_f64": var_err, "var_tol": tol["var"],
            "nlml_f32_own_probes": nl_own, "cg_iterations": info.iterations,
            "cg_rel_residual": float(info.residual_norm[0]) / float(torch.linalg.norm(model.y.double())),
-           "launches_in_nlml": launched, "nlml_wall_ms": wall * 1e3, "nlml_device_ms": device_ms,
-           "idle_share": 1 - device_ms / (wall * 1e3), "device_items": items,
+           "launches_in_nlml": launched, "nlml_wall_ms": wall * 1e3, "nlml_device_ms": dev_total,
+           "idle_share": 1 - dev_total / (wall * 1e3), "device_items": items,
            "plan_build_s": dict(model.plan_seconds),
            "var_min": float(var.min()), "var_max": float(var.max()),
            "s": {**{"f64_" + k: v for k, v in ref64["s"].items()}, "f32_first_nlml": t32_first,
@@ -1237,8 +1259,9 @@ def main() -> int:
         k = kron[name]
         entries.append({"name": name, "route": "cuda", "source": "gp_grief_tpu_torch/csrc/kron_pass.cu",
                         "replaces": replaces, "launches": fn.launches, "max_abs_err": k["max_abs_err"],
-                        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                        "bound_by": k["bound_by"], "library_ms": k["library_ms"], "chain_ms": k["chain_ms"]})
+                        "ms": k["ms"], "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
+                        "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+                        "chain_ms": k["chain_ms"]})
 
     # Phase 9: the SKI path.  The float64 runs (parity, and the float32 runs'
     # yardstick) come first; the launches count the float32 runs alone.
@@ -1254,8 +1277,8 @@ def main() -> int:
         k = ski_k[name]
         entries.append({"name": name, "route": "cuda", "source": f"gp_grief_tpu_torch/csrc/{name}.cu",
                         "replaces": replaces, "launches": fn.launches, "max_abs_err": k["max_abs_err"],
-                        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                        "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+                        "ms": k["ms"], "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
+                        "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": k["library_ms"],
                         "launches_per_nlml": {c: per_nlml[c][key] for c in SKI_CONFIGS}})
 
     # Phase 10: the per-axis passes' path (K7 as a CG operator, K6-K8 at the

@@ -15,9 +15,11 @@
 //   K8 _tail3_pass :525, _tail2_pass :590.
 // Their pass structure (lane width 128, K ⊗ I_G widening, an explicit
 // 1024-wide K_{d-1} ⊗ K_d pair matrix, VMEM budgets, hi/lo bf16 splits)
-// follows TPU rules and is not carried over.  Two members here.
+// follows TPU rules and is not carried over.  Three members here.
 //
-// kron_tile_kernel, for groups of up to three axes of at most 64 points.
+// kron_tile_kernel, for groups of up to three axes of at most 64 points, at
+// the exact grade (and at the fast grade where the mma member does not take
+// the group).
 //   A block stages the group's full extent times P trailing columns, and R
 //   consecutive rows of `pre` when P covers the whole trailing extent (the R
 //   rows are then one contiguous run), in shared memory with the factors
@@ -26,8 +28,11 @@
 //   of its outputs is written; each output is one FMA chain over k = 0..n-1.
 //   What bounds it: bytes.  At 32x32 a pass does 2·(32+32) = 128 FLOP per
 //   element against 8 bytes moved, 16 FLOP/byte, under FP32's ridge of
-//   67e12 / 3.35e12 = 20, so tensor cores would not move its bound; FMA on
-//   CUDA cores stays, at both grades.  What the design does about the bytes:
+//   67e12 / 3.35e12 = 20; in practice the FMA chains, their loads from
+//   shared memory and the index arithmetic keep it at 4-5x that bound, which
+//   is why the fast grade moved to kron_mma_tile_kernel.  The exact grade
+//   stays here, FP32 FMA chains in a fixed order (its bits are held by
+//   tests/test_torch_kron_cuda.py).  What the design does about the bytes:
 //   row batches give every thread of a 256-thread block two fibres where
 //   one row has only 32 (tail2_pass: R = 16, a 76 KB block), a tile of at
 //   most 113 KB keeps two blocks resident on an SM so that one block's
@@ -35,6 +40,29 @@
 //   as the SMs hold, each staging its factors once and looping over its
 //   rows.  Tiles over 113 KB (K2's first pass at 32^5, tail3_pass: 144 KB)
 //   keep R = 1 and 512 threads.
+//
+// kron_mma_tile_kernel, the fast grade's tile member (K2 at "default", and
+//   the fast-grade tile passes of K3, K7 and K8).  The same groups as
+//   kron_tile_kernel, staged in shared memory as bf16 -- the grade rounds
+//   every contraction operand to bf16 anyway -- which halves the tile (32^5:
+//   71 KB; two blocks an SM, at up to 128 registers a thread: a variant held
+//   to 80 registers for three blocks spilled and ran ~10% slower).  Every
+//   axis is zero-padded to a power of two of at least 16 (the m16/k16
+//   fragment; indices by shifts and masks, no divisions), the columns
+//   likewise, and 16-byte chunks are XOR-swizzled so that ldmatrix along any
+//   axis is free of bank conflicts.  Each axis
+//   contraction is a batched GEMM on bf16 mma.sync m16n8k16 with f32
+//   accumulation: Y_a = K·X_a (X_a read by ldmatrix.trans) for a middle
+//   axis, Y = X·Kᵀ for the innermost one; a warp reads all of its operand
+//   columns before it writes them back, rounded to bf16 (the next
+//   contraction's operand rounding), so the tile is contracted in place.
+//   The pass's last contraction writes its f32 accumulators straight to
+//   device memory (bf16 where the pass stores bf16): the result is not
+//   rounded to bf16 in between.  Loads batch two 16-byte chunks a thread;
+//   the overlap of loads with products comes from the other resident blocks
+//   (cp.async cannot convert f32 to bf16, and an f32 landing buffer would
+//   cost the occupancy it buys).  What bounds it: bytes (32^5: 33.5M
+//   elements read and written per pass).
 //
 // kron_wide_kernel, for one axis wider than 64 points (K3's 512-wide axes,
 //   K6, K7's wide axes): a batched GEMM on the tensor cores, C = X·Kᵀ when
@@ -50,7 +78,8 @@
 //   tile cost as much L2 bandwidth as X's own stream.  Warp-level
 //   mma.sync: the exact grade runs 3xTF32 (each operand split into
 //   big = tf32(a) and small = tf32(a - big), big·big + big·small +
-//   small·big accumulated in f32, float32 accuracy), the fast grade bf16
+//   small·big accumulated in f32, float32 accuracy; passes deeper than 512
+//   flush each chunk's partial sums into f32 sums), the fast grade bf16
 //   m16n8k16 with f32 accumulation.  What bounds it: at 8x512x512 the
 //   operations (2·M·512 per axis, 3x as TF32 products), at K6's shapes the
 //   bytes.  wgmma is later work: its tf32 form needs both operands K-major
@@ -59,6 +88,8 @@
 // Grades (template parameter FAST):
 //   exact: float32 accuracy on the operands as given (the JAX reference's
 //          HIGHEST): FP32 FMA in the tile member, 3xTF32 in the wide one.
+//          Two launches, and this member before and after the mma member
+//          was added, give the same bits.
 //   fast:  every operand (factor entries and the vector entering each
 //          contraction) rounded to bf16, products accumulated in f32.  The
 //          result of a pass may be stored as bf16 (out_bf16), which rounds it
@@ -72,6 +103,8 @@
 
 #include <cstdint>
 #include <mutex>
+
+#include "device_scope.cuh"
 
 namespace {
 
@@ -89,6 +122,10 @@ constexpr int WIDE_THREADS = 256;  // 8 warps: 4 along M x 2 along N
 constexpr int WBM = 128;           // wide kernel: output rows of a tile
 constexpr int WBK = 32;            // depth of one staged chunk
 constexpr int WMIN_STAGES = 3, WMAX_STAGES = 6;  // chunks in the shared-memory ring
+// Exact-grade wide passes deeper than this flush their tensor-core
+// accumulators into f32 sums every chunk (kron_wide_kernel's FLUSH), on
+// 64-wide tiles whatever width the caller asks for (wide_by_role).
+constexpr int FLUSH_DEPTH = 512;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -514,7 +551,13 @@ __device__ __forceinline__ uint32_t kpair(const __nv_bfloat16* row, int c) {
   return *reinterpret_cast<const uint32_t*>(row + c);
 }
 
-template <bool FAST, bool BKM, bool RES, int BN, typename AT, typename BT, typename OT>
+// FLUSH (exact grade, depth over FLUSH_DEPTH): each 32-deep chunk's products
+// go to fresh accumulators, added to f32 sums after the chunk.  The tensor
+// cores align and truncate every sum to the largest of its terms, so an
+// accumulator carried across the whole depth loses precision in step with
+// the depth (1.35e-5 at 1024, against the grade's 1e-5 limit); a chunk's
+// partial stays small, and the f32 adds round to nearest.
+template <bool FAST, bool BKM, bool RES, bool FLUSH, int BN, typename AT, typename BT, typename OT>
 __global__ void __launch_bounds__(WIDE_THREADS, 2)
 kron_wide_kernel(const AT* __restrict__ A, const BT* __restrict__ B, OT* __restrict__ C, WideArgs w) {
   using L = WideLayout<FAST, BKM, RES, BN, AT, BT>;
@@ -574,12 +617,16 @@ kron_wide_kernel(const AT* __restrict__ A, const BT* __restrict__ B, OT* __restr
   for (int s = 0; s < L::STAGES - 1; ++s) issue();
 
   float acc[MT][NT][4];
+  float part[FLUSH ? MT : 1][FLUSH ? NT : 1][4];  // the chunk's products (FLUSH)
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+      for (int q = 0; q < 4; ++q) {
+        acc[i][j][q] = 0.f;
+        if constexpr (FLUSH) part[i][j][q] = 0.f;
+      }
 
   int64_t tile = blockIdx.x;
   int kt = 0, stage = 0;
@@ -626,12 +673,24 @@ kron_wide_kernel(const AT* __restrict__ A, const BT* __restrict__ B, OT* __restr
             split_tf32(__uint_as_float(raw[2 * h + 1]), bbig[1], bsml[1]);
 #pragma unroll
             for (int i = 0; i < MT; ++i) {
-              mma_tf32(acc[i][j + h], asml[i], bbig);
-              mma_tf32(acc[i][j + h], abig[i], bsml);
-              mma_tf32(acc[i][j + h], abig[i], bbig);
+              float* c = FLUSH ? part[FLUSH ? i : 0][FLUSH ? j + h : 0] : acc[i][j + h];
+              mma_tf32(c, asml[i], bbig);
+              mma_tf32(c, abig[i], bsml);
+              mma_tf32(c, abig[i], bbig);
             }
           }
         }
+      }
+      if constexpr (FLUSH) {
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              acc[i][j][q] += part[i][j][q];
+              part[i][j][q] = 0.f;
+            }
       }
     } else {  // bf16 m16n8k16
 #pragma unroll
@@ -710,8 +769,11 @@ int copy_bytes(const void* p, int64_t ld, int64_t sb, int size) {
 
 template <bool FAST, bool BKM, bool RES, int BN, typename AT, typename BT, typename OT>
 int launch_wide(const void* A, const void* B, void* C, WideArgs w, cudaStream_t stream) {
-  static LaunchCache cache;
-  auto kern = kron_wide_kernel<FAST, BKM, RES, BN, AT, BT, OT>;
+  constexpr bool FLUSHES = !FAST && !RES && BN == 64;
+  static LaunchCache cache, flush_cache;
+  const bool flush = FLUSHES && w.K > FLUSH_DEPTH;
+  auto kern = flush ? kron_wide_kernel<FAST, BKM, RES, FLUSHES, BN, AT, BT, OT>
+                    : kron_wide_kernel<FAST, BKM, RES, false, BN, AT, BT, OT>;
   const int smem = WideLayout<FAST, BKM, RES, BN, AT, BT>::SMEM +
                    (RES ? BN * resident_ld(w.K) * static_cast<int>(sizeof(BT)) : 0);
   w.copyA = copy_bytes(A, w.lda, w.sAb, sizeof(AT));
@@ -719,7 +781,7 @@ int launch_wide(const void* A, const void* B, void* C, WideArgs w, cudaStream_t 
   w.pairC = reinterpret_cast<uintptr_t>(C) % (2 * sizeof(OT)) == 0 && w.ldc % 2 == 0 && w.sCb % 2 == 0;
   int grid = 0;
   const int64_t tiles = w.batch * ((w.M + WBM - 1) / WBM) * ((w.N + BN - 1) / BN);
-  const cudaError_t err = resident_grid(kern, cache, WIDE_THREADS, smem, tiles, grid);
+  const cudaError_t err = resident_grid(kern, flush ? flush_cache : cache, WIDE_THREADS, smem, tiles, grid);
   if (err != cudaSuccess) return static_cast<int>(err);
   kern<<<grid, WIDE_THREADS, smem, stream>>>(static_cast<const AT*>(A), static_cast<const BT*>(B),
                                              static_cast<OT*>(C), w);
@@ -730,6 +792,7 @@ int launch_wide(const void* A, const void* B, void* C, WideArgs w, cudaStream_t 
 // K-contiguous B), else the N-contiguous B operand (C_p = K·X_p).
 template <bool FAST, typename XT, typename OT>
 int wide_by_role(const void* x, const void* K, void* out, const WideArgs& w, bool x_is_a, int bn, cudaStream_t s) {
+  if (!FAST && w.K > FLUSH_DEPTH) bn = 64;  // room for the per-chunk partial sums (FLUSH)
   if (x_is_a) {
     if constexpr (!FAST) {  // the factor resident where it fits beside the ring, two blocks an SM
       const auto fits = [&](int tile, int ring) {
@@ -747,24 +810,366 @@ int wide_by_role(const void* x, const void* K, void* out, const WideArgs& w, boo
                   : launch_wide<FAST, false, false, 128, float, XT, OT>(K, x, out, w, s);
 }
 
-constexpr int ERR_SHAPE = -1;  // arguments the kernels do not take
+// ---------------------------------------------------------------------------
+// The tensor-core tile member (fast grade): the tile member's groups of up
+// to three axes, staged as bf16 and contracted by bf16 mma.sync.
+// ---------------------------------------------------------------------------
 
-// Makes `device` current for a launch and restores the caller's device.
-struct DeviceScope {
-  int prev = -1;
-  cudaError_t err = cudaSuccess;
-  explicit DeviceScope(int device) {
-    int cur = 0;
-    err = cudaGetDevice(&cur);
-    if (err == cudaSuccess && cur != device) {
-      err = cudaSetDevice(device);
-      prev = cur;
+constexpr int MMA_THREADS = 256;
+constexpr int MMA_WARPS = MMA_THREADS / 32;
+constexpr int MMA_LOAD_BATCH = 2;  // 16-byte chunks of the tile in flight per thread
+
+struct MmaArgs {
+  const float* K[3];
+  int g;
+  int n[3], o[3];
+  int lgE[3];   // log2 of each axis' padded extent E = pow2(max(n, o, 16))
+  int lgP;      // log2 of the padded column count Pp = pow2(max(P, 16)); 0 when P == 1
+  int64_t pre, post;
+  int P, R;
+  int64_t ptiles;
+  int lgrow;    // log2 of a row's padded elements, prod E * Pp
+  int koff[3];  // element offset of each factor (E x E) after the R rows
+};
+
+// Physical element of tile element f: the 16-byte chunk f / 8 keeps its
+// 128-byte line and XORs its place in it with its higher bits, folded three
+// at a time.  Eight chunks at any power-of-two stride then fall in eight
+// distinct bank groups, so every ldmatrix, every pair store and every staged
+// chunk of a warp is free of bank conflicts whichever axis it walks.
+__device__ __forceinline__ int swz(int f) {
+  const int h = f >> 3;
+  return (((h & ~7) | ((h ^ (h >> 3) ^ (h >> 6) ^ (h >> 9) ^ (h >> 12)) & 7)) << 3) | (f & 7);
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ void store_bf16_pair(__nv_bfloat16* tile, int f, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(tile + swz(f)) = __floats2bfloat162_rn(a, b);
+}
+
+// Where the last contraction of a pass writes: out[p0 + r, o_0, .., o_{g-1},
+// q0 + q] (`out` already at row p0) for tile element (r, o_0, c), c = (i_1,
+// .., i_{g-1}[, q]) packed with the padded extents; elements in the padding
+// are not written.
+struct MmaOut {
+  int64_t q0;
+  int pv;
+  int64_t row, ostride;  // elements between rows r and between outputs o_0
+};
+
+// The offset in `out`, from element (r, o_0 = 0), of tile column c, and how
+// many of columns c, c + 1 (c even, in one innermost line) are outputs:
+// 0 where c lies in the padding.  Decoded once per column, not per output.
+__device__ __forceinline__ int64_t out_column(const MmaArgs& a, const MmaOut& mo, int c, int& nvalid) {
+  int inner, valid, rest = c;
+  if (a.P > 1) {
+    inner = rest & ((1 << a.lgP) - 1);
+    rest >>= a.lgP;
+    valid = mo.pv;
+  } else {
+    inner = rest & ((1 << a.lgE[a.g - 1]) - 1);
+    rest >>= a.lgE[a.g - 1];
+    valid = a.o[a.g - 1];
+  }
+  nvalid = 0;
+  // The axes between 0 and the innermost staged one, last to first
+  // (unrolled: constant indices keep MmaArgs out of local memory).
+  const int last = a.P > 1 ? a.g - 1 : a.g - 2;
+  int64_t scale = 1, mid = 0;
+#pragma unroll
+  for (int ax = 2; ax >= 1; --ax) {
+    if (ax > last) continue;
+    const int i = rest & ((1 << a.lgE[ax]) - 1);
+    rest >>= a.lgE[ax];
+    if (i >= a.o[ax]) return 0;
+    mid += i * scale;
+    scale *= a.o[ax];
+  }
+  if (inner >= valid) return 0;
+  nvalid = inner + 1 < valid ? 2 : 1;
+  return a.P > 1 ? mid * a.post + mo.q0 + inner : mid * a.o[a.g - 1] + inner;
+}
+
+// Y_a (E x C) = K (E x E) · X_a (E x C) for a < A: the tile viewed as (A, E,
+// C), C = 2^lgC contiguous; K the A operand, X_a the B operand (ldmatrix
+// .trans).  A warp takes (a, NB columns) at a time and reads all of X_a's
+// E rows of its columns before it writes them, so the product runs in place.
+// FINAL: write to `out` instead of the tile.
+template <int E, bool FINAL, typename OT>
+__device__ __forceinline__ void contract_mid(__nv_bfloat16* tile, const __nv_bfloat16* Ks, int A, int lgC,
+                                             OT* out, const MmaArgs& ar, const MmaOut& mo) {
+  constexpr int LGE = E == 16 ? 4 : (E == 32 ? 5 : 6);
+  constexpr int MT = E / 16;
+  constexpr int NB = 1024 / E;  // columns a warp takes: 32 accumulators a thread
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int C = 1 << lgC;
+  const int nbc = C < NB ? C : NB;
+  const int nblk = C / nbc;
+  for (int task = warp; task < A * nblk; task += MMA_WARPS) {
+    const int a = task / nblk, cb = (task - a * nblk) * nbc;
+    const int base = (a << LGE) << lgC;
+    float acc[MT][NB / 8][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NB / 8; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < MT; ++ks) {
+      uint32_t af[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        ldsm_x4(af[i], Ks + swz(((i * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) << LGE) + ks * 16 + 8 * (lane >> 4)));
+#pragma unroll
+      for (int jj = 0; jj < NB / 16; ++jj) {
+        if (jj * 16 >= nbc) break;
+        uint32_t bf[4];
+        ldsm_x4_trans(bf, tile + swz(base + ((ks * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) << lgC) + cb + jj * 16 +
+                                      8 * (lane >> 4)));
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          mma_bf16(acc[i][2 * jj], af[i], bf);
+          mma_bf16(acc[i][2 * jj + 1], af[i], bf + 2);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NB / 8; ++j) {
+      if (j * 8 >= nbc) break;
+      const int c = cb + j * 8 + 2 * t;
+      int nv = 0;
+      const int64_t coff = FINAL ? out_column(ar, mo, c, nv) : 0;
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int o = i * 16 + g + 8 * h;
+          const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+          if constexpr (FINAL) {
+            if (nv == 0 || o >= ar.o[0]) continue;
+            OT* p = out + a * mo.row + o * mo.ostride + coff;
+            if (nv == 2 && reinterpret_cast<uintptr_t>(p) % (2 * sizeof(OT)) == 0) {
+              store_pair(p, v0, v1);
+            } else {
+              p[0] = from_f32<OT>(v0);
+              if (nv == 2) p[1] = from_f32<OT>(v1);
+            }
+          } else {
+            store_bf16_pair(tile, base + (o << lgC) + c, v0, v1);
+          }
+        }
     }
   }
-  ~DeviceScope() {
-    if (prev >= 0) cudaSetDevice(prev);
+}
+
+// Y (A x E) = X (A x E) · Kᵀ: the contracted axis innermost (P == 1); X the
+// A operand, K (rows o, k contiguous) the column-major B operand.  A warp
+// takes 16·MB rows at a time, in place.
+template <int E>
+__device__ __forceinline__ void contract_last(__nv_bfloat16* tile, const __nv_bfloat16* Ks, int A) {
+  constexpr int LGE = E == 16 ? 4 : (E == 32 ? 5 : 6);
+  constexpr int KT = E / 16;
+  constexpr int MB = 64 / E;  // m16 tiles a warp takes: 32 accumulators a thread
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  for (int m0 = warp * 16 * MB; m0 < A; m0 += MMA_WARPS * 16 * MB) {
+    float acc[MB][E / 8][4];
+#pragma unroll
+    for (int i = 0; i < MB; ++i)
+#pragma unroll
+      for (int j = 0; j < E / 8; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KT; ++ks) {
+      uint32_t af[MB][4];
+#pragma unroll
+      for (int i = 0; i < MB; ++i)
+        if (m0 + i * 16 < A)
+          ldsm_x4(af[i], tile + swz(((m0 + i * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) << LGE) + ks * 16 +
+                                    8 * (lane >> 4)));
+#pragma unroll
+      for (int jj = 0; jj < E / 16; ++jj) {
+        uint32_t bf[4];
+        ldsm_x4(bf, Ks + swz(((jj * 16 + (lane & 7) + 8 * (lane >> 4)) << LGE) + ks * 16 + 8 * ((lane >> 3) & 1)));
+#pragma unroll
+        for (int i = 0; i < MB; ++i) {
+          if (m0 + i * 16 >= A) break;
+          mma_bf16(acc[i][2 * jj], af[i], bf);
+          mma_bf16(acc[i][2 * jj + 1], af[i], bf + 2);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MB; ++i) {
+      if (m0 + i * 16 >= A) break;
+#pragma unroll
+      for (int j = 0; j < E / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          store_bf16_pair(tile, ((m0 + i * 16 + g + 8 * h) << LGE) + j * 8 + 2 * t, acc[i][j][2 * h],
+                          acc[i][j][2 * h + 1]);
+    }
   }
-};
+}
+
+template <bool FINAL, typename OT>
+__device__ __forceinline__ void contract_axis(__nv_bfloat16* tile, const __nv_bfloat16* Ks, int lgE, int A, int lgC,
+                                              bool last, OT* out, const MmaArgs& ar, const MmaOut& mo) {
+  if (last) {  // never the final contraction of a pass (the host keeps g == 1, P == 1 off this member)
+    if (lgE == 4) contract_last<16>(tile, Ks, A);
+    else if (lgE == 5) contract_last<32>(tile, Ks, A);
+    else contract_last<64>(tile, Ks, A);
+  } else {
+    if (lgE == 4) contract_mid<16, FINAL>(tile, Ks, A, lgC, out, ar, mo);
+    else if (lgE == 5) contract_mid<32, FINAL>(tile, Ks, A, lgC, out, ar, mo);
+    else contract_mid<64, FINAL>(tile, Ks, A, lgC, out, ar, mo);
+  }
+}
+
+__device__ __forceinline__ void load8(const float* p, float* v) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0], b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
+  const uint4 a = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&a);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x, v[2 * i + 1] = f.y;
+  }
+}
+
+template <typename XT, typename OT>
+__global__ void __launch_bounds__(MMA_THREADS, 2)
+kron_mma_tile_kernel(const XT* __restrict__ x, OT* __restrict__ out, MmaArgs a) {
+  extern __shared__ __align__(16) unsigned char msmem[];
+  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(msmem);
+  const int tid = threadIdx.x;
+
+  // The factors, rounded to bf16 (the grade's operand rounding), E x E with
+  // zeros past (o, n): padded outputs come out zero, padded inputs add nothing.
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    if (ax >= a.g) continue;
+    const int lgE = a.lgE[ax], E = 1 << lgE, n = a.n[ax], o = a.o[ax];
+    for (int e = tid; e < E * E; e += MMA_THREADS) {
+      const int r = e >> lgE, c = e & (E - 1);
+      tile[a.koff[ax] + swz(e)] = __float2bfloat16_rn(r < o && c < n ? a.K[ax][static_cast<int64_t>(r) * n + c] : 0.f);
+    }
+  }
+
+  // n and o of the unused axes are 1.
+  const int nin = a.n[0] * a.n[1] * a.n[2], nout = a.o[0] * a.o[1] * a.o[2];
+  // A staged line: the columns (P > 1) or the last axis (P == 1).
+  const int lgline = a.P > 1 ? a.lgP : a.lgE[a.g - 1];
+  const int nouter = a.P > 1 ? a.g : a.g - 1;  // axes decoded from a line's index
+  const int64_t batches = (a.pre + a.R - 1) / a.R;
+  const int chunks = (a.R << a.lgrow) >> 3;
+
+  for (int64_t blk = blockIdx.x; blk < batches * a.ptiles; blk += gridDim.x) {
+    const int64_t p0 = (blk / a.ptiles) * a.R;
+    const int64_t q0 = (blk % a.ptiles) * a.P;
+    const int pv = static_cast<int>(min(static_cast<int64_t>(a.P), a.post - q0));
+    const int rv = static_cast<int>(min(static_cast<int64_t>(a.R), a.pre - p0));
+    const int valid_inner = a.P > 1 ? pv : a.n[a.g - 1];
+    const XT* xp = x + p0 * nin * a.post + q0;
+
+    // Stage the padded tile, 8 elements (16 bytes of bf16) per chunk; pow2
+    // extents make a chunk's indices shifts and masks.
+    for (int c0 = tid; c0 < chunks; c0 += MMA_LOAD_BATCH * MMA_THREADS) {
+      float v[MMA_LOAD_BATCH][8];
+#pragma unroll
+      for (int u = 0; u < MMA_LOAD_BATCH; ++u) {
+        const int ch = c0 + u * MMA_THREADS;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v[u][i] = 0.f;
+        if (ch >= chunks) continue;
+        const int f = ch << 3;
+        const int q8 = f & ((1 << lgline) - 1);
+        int line = f >> lgline;
+        bool ok = true;
+        int64_t off = 0, scale = 1;  // the line's row of x, in lines of the input extents
+#pragma unroll
+        for (int ax = 2; ax >= 0; --ax) {
+          if (ax >= nouter) continue;
+          const int i = line & ((1 << a.lgE[ax]) - 1);
+          line >>= a.lgE[ax];
+          ok = ok && i < a.n[ax];
+          off += i * scale;
+          scale *= a.n[ax];
+        }
+        const int vc = valid_inner - q8;
+        if (!ok || line >= rv || vc <= 0) continue;
+        off += line * scale;
+        const XT* p = a.P > 1 ? xp + off * a.post + q8 : xp + off * a.n[a.g - 1] + q8;
+        if (vc >= 8 && reinterpret_cast<uintptr_t>(p) % 16 == 0) {
+          load8(p, v[u]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            if (i < vc) v[u][i] = to_f32(p[i]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < MMA_LOAD_BATCH; ++u) {
+        const int ch = c0 + u * MMA_THREADS;
+        if (ch >= chunks) continue;
+        uint4 w;
+        w.x = bf16x2(v[u][0], v[u][1]), w.y = bf16x2(v[u][2], v[u][3]);
+        w.z = bf16x2(v[u][4], v[u][5]), w.w = bf16x2(v[u][6], v[u][7]);
+        *reinterpret_cast<uint4*>(tile + swz(ch << 3)) = w;
+      }
+    }
+    __syncthreads();
+
+    // Contract the group's axes from the last to the first, in place; the
+    // first axis' products go to `out`.
+    const MmaOut mo{q0, pv, static_cast<int64_t>(nout) * a.post, static_cast<int64_t>(nout / a.o[0]) * a.post};
+    OT* op = out + p0 * nout * a.post;
+#pragma unroll
+    for (int t = 2; t >= 0; --t) {
+      if (t >= a.g) continue;
+      // lgE of the unused axes is 0: the sums over all three axes hold.
+      const int lgA = (t > 0 ? a.lgE[0] : 0) + (t > 1 ? a.lgE[1] : 0);
+      const int lgC = (a.P > 1 ? a.lgP : 0) + (t < 1 ? a.lgE[1] : 0) + (t < 2 ? a.lgE[2] : 0);
+      const __nv_bfloat16* Ks = tile + a.koff[t];
+      if (t == 0)
+        contract_axis<true>(tile, Ks, a.lgE[t], rv << lgA, lgC, lgC == 0, op, a, mo);
+      else
+        contract_axis<false>(tile, Ks, a.lgE[t], rv << lgA, lgC, lgC == 0, op, a, mo);
+      __syncthreads();
+    }
+  }
+}
+
+template <typename XT, typename OT>
+int launch_mma_tile(const void* x, void* out, const MmaArgs& a, int smem, cudaStream_t stream) {
+  static LaunchCache cache;
+  auto kern = kron_mma_tile_kernel<XT, OT>;
+  int grid = 0;
+  const cudaError_t err = resident_grid(kern, cache, MMA_THREADS, smem, (a.pre + a.R - 1) / a.R * a.ptiles, grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<grid, MMA_THREADS, smem, stream>>>(static_cast<const XT*>(x), static_cast<OT*>(out), a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int log2_pad16(int v) {  // log2 of max(16, the next power of two >= v)
+  int l = 4;
+  while ((1 << l) < v) ++l;
+  return l;
+}
+
+constexpr int ERR_SHAPE = -1;  // arguments the kernels do not take
 
 }  // namespace
 
@@ -774,18 +1179,53 @@ struct DeviceScope {
 //
 // Tile pass: contract g (1-3) adjacent axes of x (pre, n_0..n_{g-1}, post)
 // with factors K_a (o_a, n_a), f32, row-major; every n_a <= 64.  P columns
-// of post and R rows of pre per block (R > 1 only when P == post).
+// of post and R rows of pre per block (R > 1 only when P == post).  mma
+// selects the tensor-core member (fast grade only; its shared memory is
+// 2 * (R * prod E * Pp + sum E^2) bytes, E and Pp padded to powers of two
+// of at least 16, as ops/cuda/kron.py plans it).
 extern "C" int gp_grief_kron_tile_pass(const void* x, void* out, const void* K0, const void* K1,
                                        const void* K2, int g, int n0, int n1, int n2, int o0, int o1,
-                                       int o2, long long pre, long long post, int P, int R, int fast,
-                                       int x_bf16, int out_bf16, int device, void* stream) {
+                                       int o2, long long pre, long long post, int P, int R, int mma,
+                                       int fast, int x_bf16, int out_bf16, int device, void* stream) {
   const DeviceScope scope(device);
   if (scope.err != cudaSuccess) return static_cast<int>(scope.err);
-  TileArgs a{};
   const void* Ks[3] = {K0, K1, K2};
   const int ns[3] = {n0, n1, n2}, os[3] = {o0, o1, o2};
   if (g < 1 || g > 3 || pre < 1 || post < 1 || P < 1 || P > post) return ERR_SHAPE;
   if (R < 1 || (R > 1 && P != post)) return ERR_SHAPE;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mma) {  // the tensor-core member: fast grade; not a lone innermost axis
+    if (!fast || (g == 1 && P == 1) || P > 128) return ERR_SHAPE;
+    MmaArgs m{};
+    m.g = g, m.pre = pre, m.post = post, m.P = P, m.R = R;
+    m.ptiles = (post + P - 1) / P;
+    m.lgP = P > 1 ? log2_pad16(P) : 0;
+    int lgrow = m.lgP;
+    for (int ax = 0; ax < g; ++ax) {
+      if (ns[ax] < 1 || ns[ax] > 64 || os[ax] < 1 || os[ax] > 64) return ERR_SHAPE;
+      m.K[ax] = static_cast<const float*>(Ks[ax]);
+      m.n[ax] = ns[ax], m.o[ax] = os[ax];
+      m.lgE[ax] = log2_pad16(ns[ax] > os[ax] ? ns[ax] : os[ax]);
+      lgrow += m.lgE[ax];
+    }
+    for (int ax = g; ax < 3; ++ax) m.n[ax] = m.o[ax] = 1, m.lgE[ax] = 0;
+    m.lgrow = lgrow;
+    int64_t elems = static_cast<int64_t>(R) << lgrow;
+    for (int ax = 0; ax < g; ++ax) {
+      if (elems > SMEM_LIMIT) return ERR_SHAPE;
+      m.koff[ax] = static_cast<int>(elems);
+      elems += int64_t{1} << (2 * m.lgE[ax]);
+    }
+    if (2 * elems > SMEM_LIMIT) return ERR_SHAPE;
+    const int smem = static_cast<int>(2 * elems);
+    if (x_bf16) {
+      return out_bf16 ? launch_mma_tile<__nv_bfloat16, __nv_bfloat16>(x, out, m, smem, st)
+                      : launch_mma_tile<__nv_bfloat16, float>(x, out, m, smem, st);
+    }
+    return out_bf16 ? launch_mma_tile<float, __nv_bfloat16>(x, out, m, smem, st)
+                    : launch_mma_tile<float, float>(x, out, m, smem, st);
+  }
+  TileArgs a{};
   a.g = g;
   a.pre = pre;
   a.post = post;
@@ -832,7 +1272,6 @@ extern "C" int gp_grief_kron_tile_pass(const void* x, void* out, const void* K0,
   }
   const int64_t smem = floats * 4;
   if (smem > SMEM_LIMIT) return ERR_SHAPE;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int sm = static_cast<int>(smem);
   if (!fast) {
     if (x_bf16 || out_bf16) return ERR_SHAPE;

@@ -29,6 +29,8 @@
 
 #include <cstdint>
 
+#include "device_scope.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -64,8 +66,10 @@ __global__ void __launch_bounds__(THREADS) wtw_stencil_kernel(
 
 template <typename T>
 int launch(const void* v, const void* tables, const void* deltas, int D, void* out, int B, int64_t M,
-           void* stream) {
+           int device, void* stream) {
   if (B <= 0 || M <= 0) return 0;  // empty output: nothing to write
+  const DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return static_cast<int>(scope.err);
   const int64_t blocks = (M + THREADS - 1) / THREADS;
   const int slabs = (B + R - 1) / R;
   if (blocks > 0x7fffffffLL || slabs > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -78,14 +82,15 @@ int launch(const void* v, const void* tables, const void* deltas, int D, void* o
 
 }  // namespace
 
-// Plain C entry points (loaded with ctypes); the return value is the
-// launch's cudaError_t.
+// Plain C entry points (loaded with ctypes); `device` is the index of the
+// card the tensors and the stream are on.  The return value is the launch's
+// cudaError_t.
 extern "C" int gp_grief_wtw_stencil_f32(const void* v, const void* tables, const void* deltas, int D,
-                                        void* out, int B, long long M, void* stream) {
-  return launch<float>(v, tables, deltas, D, out, B, M, stream);
+                                        void* out, int B, long long M, int device, void* stream) {
+  return launch<float>(v, tables, deltas, D, out, B, M, device, stream);
 }
 
 extern "C" int gp_grief_wtw_stencil_f64(const void* v, const void* tables, const void* deltas, int D,
-                                        void* out, int B, long long M, void* stream) {
-  return launch<double>(v, tables, deltas, D, out, B, M, stream);
+                                        void* out, int B, long long M, int device, void* stream) {
+  return launch<double>(v, tables, deltas, D, out, B, M, device, stream);
 }

@@ -40,16 +40,16 @@ _I64 = ctypes.c_longlong
 _SIGNATURES = {
     "gp_grief_phi_fused_f32": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR],
     "gp_grief_phi_fused_f64": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR],
-    # x, out, K0, K1, K2, g, n0..n2, o0..o2, pre, post, P, R, fast, x_bf16, out_bf16, device, stream
-    "gp_grief_kron_tile_pass": [_PTR] * 5 + [_INT] * 7 + [_I64, _I64] + [_INT] * 6 + [_PTR],
+    # x, out, K0, K1, K2, g, n0..n2, o0..o2, pre, post, P, R, mma, fast, x_bf16, out_bf16, device, stream
+    "gp_grief_kron_tile_pass": [_PTR] * 5 + [_INT] * 7 + [_I64, _I64] + [_INT] * 7 + [_PTR],
     # x, out, K, n, o, pre, post, tile width, fast, x_bf16, out_bf16, device, stream
     "gp_grief_kron_wide_pass": [_PTR] * 3 + [_INT] * 2 + [_I64, _I64] + [_INT] * 5 + [_PTR],
-    # uT, src, w, start, end, out, B, M, stream
-    "gp_grief_interp_wt_f32": [_PTR] * 6 + [_INT, _I64, _PTR],
-    "gp_grief_interp_wt_f64": [_PTR] * 6 + [_INT, _I64, _PTR],
-    # v, tables, deltas, D, out, B, M, stream
-    "gp_grief_wtw_stencil_f32": [_PTR] * 3 + [_INT, _PTR, _INT, _I64, _PTR],
-    "gp_grief_wtw_stencil_f64": [_PTR] * 3 + [_INT, _PTR, _INT, _I64, _PTR],
+    # u (point-major), src, w, start, end, out, B, M, L, device, stream
+    "gp_grief_interp_wt_f32": [_PTR] * 6 + [_INT, _I64, _I64, _INT, _PTR],
+    "gp_grief_interp_wt_f64": [_PTR] * 6 + [_INT, _I64, _I64, _INT, _PTR],
+    # v, tables, deltas, D, out, B, M, device, stream
+    "gp_grief_wtw_stencil_f32": [_PTR] * 3 + [_INT, _PTR, _INT, _I64, _INT, _PTR],
+    "gp_grief_wtw_stencil_f64": [_PTR] * 3 + [_INT, _PTR, _INT, _I64, _INT, _PTR],
 }
 
 

@@ -21,11 +21,20 @@ from __future__ import annotations
 
 import torch
 
+from gp_grief_tpu_torch.ops.cuda import _build
 from gp_grief_tpu_torch.ops.interp import InterpPlan, interp_matvec_bm_fast, interp_rmatvec_bm_exact
 
 __all__ = ["interp_wt"]
 
 _SYMBOLS = {torch.float32: "gp_grief_interp_wt_f32", torch.float64: "gp_grief_interp_wt_f64"}
+
+
+def u_layout(u: torch.Tensor) -> torch.Tensor:
+    """The operand K4 reads for batch-major ``u`` ``(B, n)``: ``u``
+    point-major, element ``(b, p)`` at ``p * B + b``, so that the rows one
+    stream entry gathers are adjacent.  A copy (one more launch) at ``B > 1``;
+    at ``B = 1`` ``u`` itself."""
+    return u.T.contiguous()
 
 
 def _launch(plan: InterpPlan, u: torch.Tensor) -> torch.Tensor:
@@ -38,30 +47,34 @@ def _launch(plan: InterpPlan, u: torch.Tensor) -> torch.Tensor:
     out = torch.empty((B, M), dtype=u.dtype, device=u.device)
     if out.numel() == 0:
         return out
-    from gp_grief_tpu_torch.ops.cuda._build import load_library
-
-    fn = getattr(load_library(), _SYMBOLS[u.dtype])
-    # Point-major (n, B): the B values one stream entry gathers are adjacent.
-    uT = u.T.contiguous()
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
-        err = fn(uT.data_ptr(), plan.src_col.data_ptr(), plan.w_sorted.data_ptr(), plan.start_ptr.data_ptr(),
-                 plan.end_ptr.data_ptr(), out.data_ptr(), B, M, stream)
+    # The library is loaded once (ctypes keeps each symbol after its first
+    # lookup); the device's raw stream handle, with no device context or
+    # Stream object per call.
+    fn = getattr(_build.load_library(), _SYMBOLS[u.dtype])
+    ua = u_layout(u)
+    device = u.device.index
+    err = fn(ua.data_ptr(), plan.src_col.data_ptr(), plan.w_sorted.data_ptr(), plan.start_ptr.data_ptr(),
+             plan.end_ptr.data_ptr(), out.data_ptr(), B, M, plan.src_col.shape[0], device,
+             torch._C._cuda_getCurrentRawStream(device))
     if err != 0:
         raise RuntimeError(f"interp_wt kernel launch failed with cudaError {err} at (B, n, M) = {(B, n, M)}")
     interp_wt.launches += 1
     return out
 
 
+def _forward(plan: InterpPlan, u: torch.Tensor) -> torch.Tensor:
+    if u.device.type == "cuda":
+        return _launch(plan, u)
+    if u.device.type == "cpu":
+        return interp_rmatvec_bm_exact(plan, u)
+    raise ValueError(f"interp_wt: no kernel for device {u.device}")
+
+
 class _InterpWt(torch.autograd.Function):
     @staticmethod
     def forward(ctx, plan, u):
         ctx.plan = plan
-        if u.device.type == "cuda":
-            return _launch(plan, u)
-        if u.device.type == "cpu":
-            return interp_rmatvec_bm_exact(plan, u)
-        raise ValueError(f"interp_wt: no kernel for device {u.device}")
+        return _forward(plan, u)
 
     @staticmethod
     def backward(ctx, g):
@@ -75,7 +88,9 @@ def interp_wt(plan: InterpPlan, u_bm: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"interp_wt: u must be (B, {plan.n}), got {tuple(u_bm.shape)}")
     if plan.src_col.device != u_bm.device:
         raise ValueError(f"interp_wt: plan on {plan.src_col.device}, u on {u_bm.device}")
-    return _InterpWt.apply(plan, u_bm)
+    if torch.is_grad_enabled() and u_bm.requires_grad:
+        return _InterpWt.apply(plan, u_bm)
+    return _forward(plan, u_bm)  # a solver's apply: no graph to build
 
 
 interp_wt.launches = 0

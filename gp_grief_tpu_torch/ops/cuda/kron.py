@@ -24,7 +24,9 @@ VJPs: the TPU kernels had no backward kernel either.
 Grades (``precision``): ``"highest"`` is float32-accurate (FP32 FMA in
 the tile member, 3xTF32 tensor-core products in the wide member, whose
 products round differently from the plain chain's); ``"default"`` rounds
-every operand of every contraction to bf16 and accumulates in f32.  A bf16
+every operand of every contraction to bf16 and accumulates in f32, its tile
+passes on the tensor-core tile member (bf16 ``mma.sync``) wherever that
+member takes the group (:func:`_mma_tile_ok`).  A bf16
 input vector forces ``"default"`` and gives a bf16 result.
 
 The routing gates :func:`slab_schedule_applicable`,
@@ -324,6 +326,9 @@ _TWO_BLOCK_SMEM = 233472 // 2 - 1024
 _TILE_FIBRES = 2 * 256
 _TILE_MIN_BATCHES = 2 * 132  # two resident blocks on each of an H100's SMs
 _WIDE_TILE_N = (64, 128)  # csrc: output-tile widths of the wide member
+# The tensor-core tile member (fast grade; csrc kron_mma_tile_kernel) runs
+# two blocks an SM (its registers), each of 8 warps.
+_MMA_MIN_TASKS = 2 * 8  # two warp tasks for each of a block's 8 warps
 
 
 def _tile_smem_bytes(ns, outs, P: int, R: int = 1) -> int:
@@ -360,9 +365,66 @@ def _tile_rows(ns, outs, P: int, post: int, pre: int) -> int:
 def _wide_tile(o: int, post: int) -> int:
     """Output-tile width of a wide pass: 64 when the output's width is at
     most 64 (``o`` when the axis is last, else ``post``), so that no half of
-    a tile computes zeros; else 128."""
+    a tile computes zeros; else 128.  (The C side narrows exact-grade passes
+    deeper than its ``FLUSH_DEPTH`` to 64 whatever it is given: their
+    per-chunk partial sums double the accumulators.)"""
     width = o if post == 1 else post
     return _WIDE_TILE_N[0] if width <= _WIDE_TILE_N[0] else _WIDE_TILE_N[1]
+
+
+def _pow2_16(v: int) -> int:
+    """The next power of two of at least ``max(v, 16)``: the mma member's
+    padded extents (m16/k16 fragments; shifts, not divisions, for indices)."""
+    return max(16, 1 << (max(v, 1) - 1).bit_length())
+
+
+def _mma_tile_smem_bytes(ns, outs, P: int, R: int = 1) -> int:
+    """Shared memory of one block of the tensor-core tile member: ``R`` rows
+    of the bf16 tile, every axis padded to ``E = _pow2_16(max(n, o))`` and
+    the columns to ``_pow2_16(P)``, then each factor as an ``E × E`` bf16
+    block; the same arithmetic as ``gp_grief_kron_tile_pass`` (``mma``) in
+    csrc/kron_pass.cu."""
+    E = [_pow2_16(max(n, o)) for n, o in zip(ns, outs)]
+    row = math.prod(E) * (_pow2_16(P) if P > 1 else 1)
+    return 2 * (R * row + sum(e * e for e in E))
+
+
+def _mma_tile_ok(ns, outs, P: int) -> bool:
+    """Whether the tensor-core member takes a tile pass: every extent at most
+    64, at most 128 columns, not a lone innermost axis (``g == 1``, ``P ==
+    1``: its rows would be the m16 dimension), and one row's tile in
+    shared memory."""
+    return (max(*ns, *outs) <= _TILE_MAX_AXIS and P <= _TILE_MAX_P and not (len(ns) == 1 and P == 1)
+            and _mma_tile_smem_bytes(ns, outs, P) <= _SMEM_LIMIT)
+
+
+def _mma_tile_rows(ns, outs, P: int, post: int, pre: int) -> int:
+    """Rows of ``pre`` a tensor-core tile block stages (only where the ``P``
+    columns cover the trailing extent, as in :func:`_tile_rows`): ``R``
+    doubles while some contraction of the group has fewer than
+    ``_MMA_MIN_TASKS`` warp tasks, the tile leaves room for a second
+    resident block, and ``pre`` gives every one of two blocks an SM a
+    batch."""
+    if P != post:
+        return 1
+    E = [_pow2_16(max(n, o)) for n, o in zip(ns, outs)]
+    Pp = _pow2_16(P) if P > 1 else 1
+
+    def tasks(R):  # the fewest warp tasks of any of the group's contractions
+        out = []
+        for t in range(len(E)):
+            A, C = R * math.prod(E[:t]), math.prod(E[t + 1 :]) * Pp
+            if C == 1:  # X·Kᵀ: 64 rows a task (16 · 64 / E)
+                out.append(A * E[t] // 1024)
+            else:  # K·X_a: 1024 / E columns a task
+                out.append(A * max(1, C * E[t] // 1024))
+        return min(out)
+
+    R = 1
+    while (tasks(R) < _MMA_MIN_TASKS and pre >= 2 * R * _TILE_MIN_BATCHES
+           and _mma_tile_smem_bytes(ns, outs, P, 2 * R) <= _TWO_BLOCK_SMEM):
+        R *= 2
+    return R
 
 
 def _tile_columns(ns, outs, post: int) -> int:
@@ -432,12 +494,15 @@ def kron_chain_ref(factors: Sequence[torch.Tensor], v: torch.Tensor, *, fast: bo
 
 
 @functools.lru_cache(maxsize=512)
-def _passes(ms: tuple, outs: tuple, B: int, lead: int, plan: tuple | None) -> tuple:
+def _passes(ms: tuple, outs: tuple, B: int, lead: int, plan: tuple | None, fast: bool = False) -> tuple:
     """The launches of a pass plan (``plan`` defaults to
-    :func:`_hopper_plan`), as ``(i, j, out_shape, wide, args)``: ``args``
-    are the shape arguments of ``gp_grief_kron_wide_pass`` (``n, o, pre,
-    post, tile width``) or ``gp_grief_kron_tile_pass`` (``g, n0..n2,
-    o0..o2, pre, post, P, R``).  Cached: the wrappers run in solver loops."""
+    :func:`_hopper_plan`) at a grade, as ``(i, j, out_shape, wide, args)``:
+    ``args`` are the shape arguments of ``gp_grief_kron_wide_pass`` (``n,
+    o, pre, post, tile width``) or ``gp_grief_kron_tile_pass`` (``g,
+    n0..n2, o0..o2, pre, post, P, R, mma``).  At the fast grade a tile pass
+    the tensor-core member takes (:func:`_mma_tile_ok`) runs there with its
+    own rows (``mma = 1``); every other tile pass runs the FP32 member.
+    Cached: the wrappers run in solver loops."""
     plan = plan or _hopper_plan(ms, outs, B)
     cur = list(ms)
     out = []
@@ -447,8 +512,10 @@ def _passes(ms: tuple, outs: tuple, B: int, lead: int, plan: tuple | None) -> tu
             args = (ms[i], outs[i], pre, post, _wide_tile(outs[i], post))
         else:
             pad = (1,) * (3 - (j - i + 1))
-            R = _tile_rows(ms[i : j + 1], outs[i : j + 1], P, post, pre)
-            args = (j - i + 1, *ms[i : j + 1], *pad, *outs[i : j + 1], *pad, pre, post, P, R)
+            ns, os_ = ms[i : j + 1], outs[i : j + 1]
+            mma = fast and _mma_tile_ok(ns, os_, P)
+            R = (_mma_tile_rows if mma else _tile_rows)(ns, os_, P, post, pre)
+            args = (j - i + 1, *ns, *pad, *os_, *pad, pre, post, P, R, int(mma))
         out.append((i, j, (pre, *outs[i : j + 1], post), P == 0, args))
         cur[i : j + 1] = outs[i : j + 1]
     return tuple(out)
@@ -471,7 +538,7 @@ def _launch(which, factors, v: torch.Tensor, fast: bool, mid_dtype, B: int, *, l
     lib = load_library()
     ms = tuple(K.shape[1] for K in factors)
     outs = tuple(K.shape[0] for K in factors)
-    passes = _passes(ms, outs, B, lead, plan)
+    passes = _passes(ms, outs, B, lead, plan, fast)
     x = v
     # The current stream's handle, as torch.cuda.current_stream(v.device)
     # .cuda_stream gives it without building a Stream object on every call.

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from gp_grief_tpu_torch.ops.cuda import _build
 from gp_grief_tpu_torch.ops.interp_stencil import WtWStencil, stencil_apply_ref
 
 __all__ = ["wtw_stencil"]
@@ -36,13 +37,13 @@ def _launch(st: WtWStencil, v: torch.Tensor) -> torch.Tensor:
     out = torch.empty((B, M), dtype=v.dtype, device=v.device)
     if out.numel() == 0:
         return out
-    from gp_grief_tpu_torch.ops.cuda._build import load_library
-
-    fn = getattr(load_library(), _SYMBOLS[v.dtype])
-    with torch.cuda.device(v.device):
-        stream = torch.cuda.current_stream(v.device).cuda_stream
-        err = fn(v.data_ptr(), st.tables.data_ptr(), st.delta_t.data_ptr(), len(st.deltas), out.data_ptr(), B, M,
-                 stream)
+    # The library is loaded once (ctypes keeps each symbol after its first
+    # lookup); the device's raw stream handle, with no device context or
+    # Stream object per call.
+    fn = getattr(_build.load_library(), _SYMBOLS[v.dtype])
+    device = v.device.index
+    err = fn(v.data_ptr(), st.tables.data_ptr(), st.delta_t.data_ptr(), len(st.deltas), out.data_ptr(), B, M,
+             device, torch._C._cuda_getCurrentRawStream(device))
     if err != 0:
         raise RuntimeError(f"wtw_stencil kernel launch failed with cudaError {err} at (B, M, D) = "
                            f"{(B, M, len(st.deltas))}")
@@ -76,7 +77,9 @@ def wtw_stencil(st: WtWStencil, v_bm: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"wtw_stencil: v must be (B, {st.M}), got {tuple(v_bm.shape)}")
     if st.tables.device != v_bm.device:
         raise ValueError(f"wtw_stencil: tables on {st.tables.device}, v on {v_bm.device}")
-    return _WtW.apply(st, v_bm)
+    if torch.is_grad_enabled() and v_bm.requires_grad:
+        return _WtW.apply(st, v_bm)
+    return _apply(st, v_bm)  # a solver's apply: no graph to build
 
 
 wtw_stencil.launches = 0

@@ -14,7 +14,7 @@ import torch
 import jax.numpy as jnp
 from gp_grief_tpu.ops import interp as jint
 from gp_grief_tpu_torch.ops import interp as tint
-from gp_grief_tpu_torch.ops.cuda import interp_wt
+from gp_grief_tpu_torch.ops.cuda import interp as interp_wt_module, interp_wt
 
 torch.set_num_threads(1)
 
@@ -130,3 +130,47 @@ def test_k4_wrapper_rejects_mismatched_operands():
     tp = tint.build_interp_plan(tint.interp_weights(x, xg))
     with pytest.raises(ValueError, match=r"\(B, 30\)"):
         interp_wt(tp, torch.zeros((2, 31), dtype=torch.float64))
+
+
+def _clustered(shape=(16, 16, 16), n=3000, seed=6):
+    """Most points in a few cells (hundreds of stream entries each), the rest
+    scattered: segments longer than the kernel's warp threshold, and many
+    empty cells."""
+    rng = np.random.default_rng(seed)
+    xg = [np.linspace(0, 1, m) for m in shape]
+    x = rng.uniform(0, 1, size=(n, len(shape)))
+    x[: n // 2] = 0.5 + 0.01 * rng.standard_normal((n // 2, len(shape)))
+    x[n // 2 : 3 * n // 4] = 0.2 + 0.003 * rng.standard_normal((n // 4, len(shape)))
+    return x, xg
+
+
+@pytest.mark.parametrize("geometry", ["clustered", *(f"{s}-{n}" for s, n in SHAPES)])
+def test_k4_plan_segments_follow_one_another(geometry):
+    """K4 walks a block's cells as one contiguous stream range: each cell's
+    segment starts where the previous one ends."""
+    x, xg = _clustered() if geometry == "clustered" else _case(*dict((f"{s}-{n}", (s, n)) for s, n in SHAPES)[geometry])
+    tp = tint.build_interp_plan(tint.interp_weights(x, xg))
+    start, end = tp.start_ptr.long(), tp.end_ptr.long()
+    assert int(start[0]) == 0 and int(end[-1]) == int(tp.src_col.shape[0])
+    assert torch.equal(start[1:], end[:-1]) and bool((end >= start).all())
+    if geometry == "clustered":
+        lengths = end - start
+        assert int(lengths.max()) > 256 and int((lengths == 0).sum()) > tp.M // 4
+
+
+@pytest.mark.parametrize("B", [1, 3, 9])
+def test_k4_operand_layout_strides(B):
+    """The operand the wrapper hands K4: ``u`` point-major, element ``(b, p)``
+    at ``p * B + b``.  Summing each cell's segment through that addressing
+    (the kernel's) gives the plain version, on the clustered plan."""
+    x, xg = _clustered()
+    tp = tint.build_interp_plan(tint.interp_weights(x, xg))
+    u = torch.as_tensor(np.random.default_rng(B).standard_normal((B, x.shape[0])))
+    ua = interp_wt_module.u_layout(u)
+    assert ua.is_contiguous() and tuple(ua.shape) == (x.shape[0], B)
+    flat = ua.reshape(-1)
+    src = tp.src_col.long()
+    cell = torch.repeat_interleave(torch.arange(tp.M), (tp.end_ptr - tp.start_ptr).long())
+    vals = tp.w_sorted[None, :] * flat[src[None, :] * B + torch.arange(B)[:, None]]
+    got = torch.zeros((B, tp.M), dtype=u.dtype).index_add_(1, cell, vals)
+    _close(got.numpy(), tint.interp_rmatvec_bm_exact(tp, u).numpy())

@@ -17,7 +17,7 @@ import torch
 import gp_grief_tpu_torch as gpt
 from gp_grief_tpu_torch.ops import interp as tint
 from gp_grief_tpu_torch.ops import interp_stencil as tst
-from gp_grief_tpu_torch.ops.cuda import _build, interp_wt, kron as tk, wtw_stencil
+from gp_grief_tpu_torch.ops.cuda import _build, interp as k4, interp_wt, kron as tk, wtw_stencil
 from gp_grief_tpu_torch.ops.kron_fast import kernel_route, kron_matvec_fast
 
 pytestmark = pytest.mark.cuda
@@ -60,6 +60,50 @@ def test_interp_wt_matches_plain_version_and_repeats_bits(cuda, shape, n, dtype)
     assert interp_wt.launches == before + 2
     assert got.shape == (9, math.prod(shape)) and torch.equal(got, again)
     assert _rel(got, tint.interp_rmatvec_bm_exact(plan, u)) <= TOL[dtype]
+
+
+def _stress_geometry(which):
+    """K4's redesign under stress: n >> M (about 30 entries a cell); a slab
+    of points that puts up to ~180 entries in each of ~230 cells (over the
+    warp threshold, and a block's stream range three times the largest
+    shared-memory chunk) among many empty ones; a sparse scatter that leaves
+    most cells empty."""
+    rng = np.random.default_rng(11)
+    if which == "dense":
+        return _geometry((16, 16, 16, 16), 200_000, seed=11)
+    if which == "sparse":
+        return _geometry((24, 20, 22), 1500, seed=12)
+    xg = [np.linspace(0, 1, m) for m in (20, 18, 16)]
+    slab = np.stack([0.5 + 0.01 * rng.uniform(-1, 1, 4000), rng.uniform(0.3, 0.7, 4000), rng.uniform(0, 1, 4000)], 1)
+    return tint.interp_weights(np.concatenate([slab, rng.uniform(0, 1, (300, 3))]), xg)
+
+
+@pytest.mark.parametrize("B", [1, 9])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("which", ["dense", "clustered", "sparse"])
+def test_interp_wt_under_stress(cuda, which, dtype, B):
+    iw = _stress_geometry(which)
+    plan = tint.build_interp_plan(iw, dtype=dtype, device=cuda)
+    lengths = (plan.end_ptr - plan.start_ptr).long()
+    if which == "clustered":
+        block_ranges = plan.end_ptr.long()[255::256] - plan.start_ptr.long()[::256][: plan.M // 256]
+        assert int((lengths > 64).sum()) > 200 and int((lengths == 0).sum()) > plan.M // 2
+        assert int(block_ranges.max()) > 3 * 5120  # the largest chunk: float32, one row
+    n = plan.n
+    u = torch.randn((B, n), generator=torch.Generator().manual_seed(B), dtype=torch.float64).to(cuda, dtype)
+    before = interp_wt.launches
+    got = k4._launch(plan, u)
+    again = k4._launch(plan, u)
+    torch.cuda.synchronize()
+    assert interp_wt.launches == before + 2
+    assert got.shape == (B, plan.M) and torch.equal(got, again)
+    # The plain version in float64 on the same operands: sums of up to ~180
+    # terms round in float32 by more than the short sums TOL was set for, in
+    # the plain version's own order as in the kernel's.
+    plan64 = plan._replace(w_sorted=plan.w_sorted.double(), slot_w=plan.slot_w.double(), ov_w=plan.ov_w.double())
+    assert _rel(got, tint.interp_rmatvec_bm_exact(plan64, u.double())) <= TOL[dtype]
+    # The public entry launches the same kernel: the same bits.
+    assert torch.equal(got, interp_wt(plan, u))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -341,6 +341,73 @@ def test_wide_tile(o, post, width):
     assert tcuda._wide_tile(o, post) == width
 
 
+def test_mma_tile_smem_bytes_by_hand():
+    """The tensor-core tile member's bf16 block: every axis padded to a power
+    of two of at least 16, the columns too, then one E x E factor per axis."""
+    # K2's first pass at 32^5: a 32^3 tile and three 32x32 factors, 71,680
+    # bytes: two blocks an SM (the member's registers allow two).
+    assert tcuda._mma_tile_smem_bytes([32] * 3, [32] * 3, 1) == 2 * (32**3 + 3 * 32 * 32) == 71680
+    # Its second pass: (32, 32) with 32 columns.
+    assert tcuda._mma_tile_smem_bytes([32, 32], [32, 32], 32) == 2 * (32**3 + 2 * 32 * 32)
+    # Ragged extents pad up: 4 -> 16, 8 -> 16, 12 and 9 -> 16, 20 -> 32, 50 columns -> 64.
+    assert tcuda._mma_tile_smem_bytes([4, 16, 8], [4, 16, 8], 1) == 2 * (16**3 + 3 * 16 * 16)
+    assert tcuda._mma_tile_smem_bytes([12, 9], [20, 9], 50, 2) == 2 * (2 * 32 * 16 * 64 + 32 * 32 + 16 * 16)
+    assert [tcuda._pow2_16(v) for v in (1, 16, 17, 33, 64)] == [16, 16, 32, 64, 64]
+
+
+def test_mma_plan_at_32x5_default():
+    """Both of K2's passes at 32^5 "default" run on the tensor-core member,
+    one row a block, and each block leaves room for a second on its SM; the
+    exact grade keeps the FP32 member and its plan."""
+    fast = tcuda._passes((32,) * 5, (32,) * 5, 1, 1, None, True)
+    exact = tcuda._passes((32,) * 5, (32,) * 5, 1, 1, None, False)
+    assert [(i, j) for i, j, *_ in fast] == [(i, j) for i, j, *_ in exact] == [(2, 4), (0, 1)]
+    for i, j, _, wide, args in fast:
+        g, ns, outs, P, R, mma = args[0], args[1 : 1 + args[0]], args[4 : 4 + args[0]], args[-3], args[-2], args[-1]
+        assert not wide and mma == 1 and R == 1
+        assert tcuda._mma_tile_smem_bytes(ns, outs, P, R) <= tcuda._TWO_BLOCK_SMEM
+    assert all(args[-1] == 0 for *_, args in exact)
+    assert [args[:-1] for *_, args in exact] == [args[:-1] for *_, args in fast]
+
+
+MMA_ROWS_CASES = [  # (case, (ns, outs, P, post, pre), R)
+    ("k2_32x5_first", ([32] * 3, [32] * 3, 1, 1, 1024), 1),  # 32 warp tasks a contraction already
+    ("tail2_32768", ([32, 32], [32, 32], 1, 1, 32768), 16),  # 16 tasks from 16 rows
+    ("tail2_pre3", ([32, 32], [32, 32], 1, 1, 3), 1),  # too few rows to batch
+    ("columns_not_all", ([32, 32], [32, 32], 32, 32768, 1), 1),  # P < post: one row
+]
+
+
+@pytest.mark.parametrize("case,args,R", MMA_ROWS_CASES, ids=[c[0] for c in MMA_ROWS_CASES])
+def test_mma_tile_rows(case, args, R):
+    assert tcuda._mma_tile_rows(*args) == R
+    ns, outs, P, _, _ = args
+    assert tcuda._mma_tile_smem_bytes(ns, outs, P, R) <= tcuda._TWO_BLOCK_SMEM
+
+
+MMA_OK_CASES = [  # (ns, outs, P, takes it)
+    ([32] * 3, [32] * 3, 1, True),
+    ([4, 16, 8], [4, 16, 8], 1, True),
+    ([8], [8], 128, True),  # one axis with columns: a K·X_a product
+    ([32], [32], 1, False),  # a lone innermost axis: its rows would be the m16 side
+    ([32, 80], [32, 80], 1, False),  # an axis over 64 (a wide pass's)
+    ([32, 32], [32, 32], 200, False),  # more columns than a tile takes
+    ([64, 64, 64], [64, 64, 64], 1, False),  # 512 KB of bf16: over shared memory
+]
+
+
+@pytest.mark.parametrize("ns,outs,P,ok", MMA_OK_CASES)
+def test_mma_tile_ok(ns, outs, P, ok):
+    assert tcuda._mma_tile_ok(ns, outs, P) == ok
+
+
+def test_fast_plan_keeps_the_fp32_member_where_mma_does_not_fit():
+    """At B = 8 on 32^4 x 4 the first group's bf16 tile (32·32·16 padded,
+    16 columns) would not fit; that pass stays on the FP32 member."""
+    fast = tcuda._passes((32, 32, 32, 32, 4), (32, 32, 32, 32, 4), 8, 1, None, True)
+    assert [args[-1] for *_, args in fast] == [0, 1]
+
+
 @pytest.mark.parametrize("which", ["slab", "fused"])
 def test_wrapper_vjp_matches_jax(which):
     """The wrappers' backward is the plain chain's VJP, as the JAX custom VJP."""

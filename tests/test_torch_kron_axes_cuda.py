@@ -58,6 +58,7 @@ K7_CASES = [  # (factor shapes (o, m), B)
     ([(96, 80), (50, 50)], 1),  # post 50 in a 64-wide tile
     ([(96, 80), (20, 10)], 10),  # post 200 in 128-wide tiles
     ([(70, 200), (8, 8)], 3),  # depth 200: not a multiple of the 16-deep chunk
+    ([(16, 1024), (8, 8)], 64),  # depth 1024 in the C_p = K·X_p role
 ]
 
 
@@ -95,6 +96,7 @@ def test_kron_matmat_gradient_matches_plain_chain(cuda):
     (32768, 128, 128), (4097, 48, 64), (1000, 200, 72),
     (4097, 50, 64), (4097, 50, 72),  # rows of 50 floats: 4-byte copies, a ragged last chunk
     (3, 80, 64), (129, 128, 65),  # fewer rows than a tile; a ragged output tile
+    (4097, 1024, 64),  # a 1024-deep contraction: 3xTF32's error grows with depth
 ])
 def test_last_slab_pass_matches_plain_version(cuda, N, S, So):
     g = torch.Generator().manual_seed(3)

@@ -119,6 +119,73 @@ def test_grid_lattices_route_to_their_kernels(cuda):
     assert _rel(got, tk.kron_chain_ref(fs, v)[:, 0]) < TOL["highest"]
 
 
+# K2 at the fast grade, on the tensor-core tile member: (sizes, B, vector
+# dtype, mid_dtype).  32^5 (the grid configuration), a 64-point axis, ragged
+# d = 5 extents padded to the mma shape, a bf16 input vector, bf16 storage
+# between passes, and batches.
+FAST_SLAB_CASES = [
+    ((32,) * 5, 1, torch.float32, torch.bfloat16),
+    ((32,) * 5, 1, torch.float32, None),
+    ((64, 16, 32, 64), 1, torch.float32, torch.bfloat16),
+    ((4, 16, 8, 16, 8), 1, torch.float32, torch.bfloat16),
+    ((5, 12, 9, 20, 7), 1, torch.float32, None),
+    ((4, 16, 8, 16, 8), 1, torch.bfloat16, None),
+    ((16, 32, 32, 32), 3, torch.float32, torch.bfloat16),
+    ((8, 32, 32, 32), 16, torch.float32, None),
+]
+
+
+@pytest.mark.parametrize("sizes,B,vdtype,mid", FAST_SLAB_CASES)
+def test_slab_fast_grade_on_the_tensor_cores(cuda, sizes, B, vdtype, mid):
+    fs, v = _operands(sizes, sizes, B, cuda, seed=5)
+    v = v.to(vdtype)
+    passes = tk._passes(tuple(sizes), tuple(sizes), B, 1, None, True)
+    assert any(not wide and args[-1] == 1 for *_, wide, args in passes)  # a pass on the mma member
+    before = tk.kron_matvec_slab.launches
+    got = tk.kron_matvec_slab(fs, v, precision="default", mid_dtype=mid)
+    again = tk.kron_matvec_slab(fs, v, precision="default", mid_dtype=mid)
+    torch.cuda.synchronize()
+    assert tk.kron_matvec_slab.launches - before == 2 * len(passes)
+    assert torch.equal(got, again) and got.dtype == vdtype and got.shape == (math.prod(sizes), B)
+    plain = tk.kron_chain_ref(fs, v.float(), fast=True)
+    exact = tk.kron_chain_ref([f.double() for f in fs], v.double())
+    # A bf16 result is rounded once more than the plain version's.
+    assert _rel(got, plain) < (1e-2 if vdtype == torch.bfloat16 else TOL["default"])
+    assert _rel(got, exact) < FAST_VS_EXACT
+
+
+# sha256 of the exact grade's (X3: the SKI lattice's Q/Qᵀ at B = 8) float32
+# output bytes from the FP32 tile member as it stood before the tensor-core
+# member was added, on an H100: the exact grade keeps those bits.
+X3_DIGEST = "264a185a3895fafbb9e264b2dee9f05f525616b2233747ca012eb683bc1ce922"
+
+
+def test_slab_exact_grade_keeps_its_bits(cuda):
+    import hashlib
+
+    g = torch.Generator().manual_seed(4)
+    Qs = [torch.linalg.qr(torch.randn((32, 32), generator=g, dtype=torch.float64))[0].float() for _ in range(4)]
+    fs = [torch.eye(8).to(cuda), *[Q.contiguous().to(cuda) for Q in Qs]]
+    v = torch.randn((8 * 32**4,), generator=g, dtype=torch.float64).float().to(cuda)
+    got = kron_matvec_fast(fs, v, precision="BF16_BF16_F32_X3")
+    torch.cuda.synchronize()
+    assert hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest() == X3_DIGEST
+
+
+def test_wide_member_exact_grade_at_depth_1024(cuda):
+    """3xTF32's error grows with the contraction depth: K3 at (8, 1024, 1024)
+    "highest" runs two 1024-deep wide passes, held to the same 1e-5 limits
+    against the plain version and against float64."""
+    fs, v = _operands((8, 1024, 1024), (8, 1024, 1024), 1, cuda, seed=3)
+    assert [p[2] for p in tk._hopper_plan([8, 1024, 1024], [8, 1024, 1024], 1)][:2] == [0, 0]
+    got = tk.kron_matvec_fused(fs, v, precision="highest")
+    again = tk.kron_matvec_fused(fs, v, precision="highest")
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _rel(got, tk.kron_chain_ref(fs, v)) < TOL["highest"]
+    assert _rel(got, tk.kron_chain_ref([f.double() for f in fs], v.double())) < 1e-5
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     fs, v = _operands((4, 4, 8), (4, 4, 8), 1, cuda)
     before = tk.kron_matvec_slab.launches

@@ -16,7 +16,8 @@ power limit.  Then, for each grid configuration of chip_smoke.GRID_CONFIGS,
 one CG log-likelihood after a warm-up: wall time, device time, idle share
 and its ten largest device items.  ``--only`` keeps the cases and
 configurations whose label or entry-point name contains one of the
-substrings.  The kernels are built from the checkout's csrc/ at first use.
+substrings; ``--only interp_wt`` / ``wtw_stencil`` adds K4 / K5 at phase 8's
+float32 shapes (not run without ``--only``).  The kernels are built from the checkout's csrc/ at first use.
 """
 
 from __future__ import annotations
@@ -114,6 +115,28 @@ def cases():
     return out
 
 
+def ski_cases():
+    """(label, entry name, run()) for K4 and K5 at chip_smoke.py's phase-8
+    shapes, float32, through their public entry points."""
+    import torch
+    from gp_grief_tpu_torch.ops import interp as tint
+    from gp_grief_tpu_torch.ops import interp_stencil as tst
+    from gp_grief_tpu_torch.ops.cuda import interp_wt, wtw_stencil
+
+    for kname, label, which, B in chip_smoke.SKI_KERNEL_SHAPES:
+        x, xg = chip_smoke.ski_geometry(which)
+        iw = tint.interp_weights(x, xg)
+        g = torch.Generator(device="cpu").manual_seed(0)
+        if kname == "interp_wt":
+            plan = tint.build_interp_plan(iw, dtype=torch.float32, device="cuda")
+            u = torch.randn((B, int(x.shape[0])), generator=g).cuda()
+            yield label, kname, lambda plan=plan, u=u: interp_wt(plan, u)
+        else:
+            st = tst.build_wtw_stencil(iw, dtype=torch.float32, device="cuda")
+            v = torch.randn((B, st.M), generator=g).cuda()
+            yield label, kname, lambda st=st, v=v: wtw_stencil(st, v)
+
+
 def main() -> int:
     import torch
 
@@ -143,6 +166,17 @@ def main() -> int:
                               "cuda_ms": ms, "host_us": host_us, "kernels": kernels, "card": card}), flush=True)
         del x
         torch.cuda.empty_cache()
+
+    if args.only and any(s in k for s in args.only for k in ("interp_wt", "wtw_stencil")):
+        for label, kname, run in ski_cases():
+            if not any(s in label or s in kname for s in args.only):
+                continue
+            with torch.no_grad():
+                ms = chip_smoke.cuda_ms(run, reps=args.reps)
+                kernels = profile(run, args.reps)
+                host_us = host_time(run, args.reps) * 1e6
+            print(json.dumps({"case": label, "kernel": kname, "precision": "float32", "cuda_ms": ms,
+                              "host_us": host_us, "kernels": kernels, "card": card}), flush=True)
 
     from torch.profiler import ProfilerActivity, profile as tprofile
 
