@@ -10,7 +10,10 @@ non-zero without printing the final line:
 2. build   — compiles the port's CUDA kernels from gp_grief_tpu_torch/csrc/.
 3. kernel  — K1 (the fused Φ assembly) against its plain PyTorch version on
              the card, float32 and float64, at the main path's shapes and one
-             ragged shape; CUDA-event times of both.
+             ragged shape; two launches bit-identical; CUDA-event times of
+             both and the kernel's device time, beside the bound (at the
+             FP32 rate outside the tensor cores) and the same work's bound
+             at 3xTF32's tensor-core rate.
 4. kin40k  — the kin40k_synth config (benchmarks/run_configs.py:kin40k):
              first its float64 NLML and gradient at the initial parameters
              against the JAX package's; then, twice, end to end through
@@ -34,9 +37,10 @@ non-zero without printing the final line:
 8. ski_kernel — K4 (interp_wt) and K5 (wtw_stencil) against their plain
              versions on the card, float32 and float64, at the SKI
              configurations' shapes and one ragged d=3 lattice; two launches
-             bit-identical; CUDA-event times of the kernel, the plain version
-             and one torch.sparse.mm of the same sparse matrix, beside the
-             bound.
+             bit-identical, and K5's window member bit-identical to its cell
+             member (the member each shape's plan picks is printed);
+             CUDA-event times of the kernel, the plain version and one
+             torch.sparse.mm of the same sparse matrix, beside the bound.
 9. ski     — the two SKI configurations (SKI_CONFIGS) end to end through
              ``GPSKIRegression``.  First float64, with the numpy probes of
              tools/ski_reference_f64.json: the NLML and exact predictions
@@ -115,9 +119,10 @@ KERNEL_TOL = {"float32": 1e-5, "float64": 1e-12}
 # way the card reaches it: three TF32 tensor-core products per product
 # (3xTF32), 495e12 / 3, above the 67e12 of FP32 FMA outside the tensor cores,
 # so a bound reads the same work whichever unit a kernel runs it on; bf16 for
-# "default".
+# "default".  "fp32" is the CUDA cores' rate: K1's, which keeps plain FP32
+# FMA chains for their bits and so runs its operations there.
 H100_BYTES_PER_S = 3.35e12
-H100_FLOPS = {"highest": 495e12 / 3, "default": 989e12}
+H100_FLOPS = {"highest": 495e12 / 3, "default": 989e12, "fp32": 67e12}
 
 # (name, d, n, m, p): the shapes the main path hands K1.
 KERNEL_SHAPES = [
@@ -211,7 +216,9 @@ def phase_kernel(card: str) -> dict:
             with torch.no_grad():
                 B, S = phi_operands(d, n, m, p, dtype, "cuda")
                 got = phi_fused(B, S)
+                again = phi_fused(B, S)
                 torch.cuda.synchronize()
+                identical = bool(torch.equal(got, again))
                 ref = phi_fused_ref(B, S)
                 scale = phi_fused_ref(B.abs(), S.abs()).clamp_min(torch.finfo(dtype).tiny)
                 diff = (got - ref).abs()
@@ -220,21 +227,31 @@ def phase_kernel(card: str) -> dict:
                 check(tuple(got.shape) == (n, p) and bool(torch.isfinite(got).all()),
                       f"K1 {name} {tag}: bad output")
                 ms = cuda_ms(lambda: phi_fused(B, S))
+                dev_ms = device_ms(lambda: phi_fused(B, S))
                 plain_ms = cuda_ms(lambda: phi_fused_ref(B, S))
+            # 2·n·p·d·m operations against B, S read once and Φ written once.
+            # K1 keeps its bits with plain FMA chains on the CUDA cores, so its
+            # operations are held to the FP32 rate outside the tensor cores;
+            # `bound_3xtf32_ms` is the same work at 3xTF32's tensor-core rate.
+            t_ops = 2.0 * n * p * d * m / H100_FLOPS["fp32"]
+            t_bytes = (4.0 if tag == "float32" else 8.0) * (d * n * m + d * m * p + n * p) / H100_BYTES_PER_S
+            bound_3xtf32_ms = max(2.0 * n * p * d * m / H100_FLOPS["highest"], t_bytes) * 1e3
             emit({"phase": "kernel", "kernel": "phi_fused", "shape": name, "d": d, "n": n, "m": m,
                   "p": p, "dtype": tag, "max_rel_err": rel, "max_abs_err": abs_err,
                   "tol": KERNEL_TOL[tag], "tol_reason": "per element, relative to prod_d sum_k |B S|",
-                  "ms": ms, "plain_ms": plain_ms, "card": card})
+                  "two_launches_identical": identical, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                  "bound_ms": max(t_ops, t_bytes) * 1e3, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                  "bound_3xtf32_ms": bound_3xtf32_ms, "card": card})
             check(rel <= KERNEL_TOL[tag], f"K1 {name} {tag}: rel err {rel:.3e} > {KERNEL_TOL[tag]}")
+            check(identical, f"K1 {name} {tag}: two launches differ")
             if tag == "float32":
                 summary["max_abs_err"] = max(summary["max_abs_err"], abs_err)
                 if name == "kin40k_stats":
-                    # 2·n·p·d·m FP32 operations against B, S read once and Φ written once.
-                    t_ops = 2.0 * n * p * d * m / H100_FLOPS["highest"]
-                    t_bytes = 4.0 * (d * n * m + d * m * p + n * p) / H100_BYTES_PER_S
-                    summary.update(ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes) * 1e3,
+                    summary.update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes) * 1e3,
                                    bound_by="operations" if t_ops >= t_bytes else "bytes")
-            del B, S, got, ref, scale, diff
+                elif name == "uci2m_stats_chunk":
+                    summary.update(uci2m_chunk_ms=ms, uci2m_chunk_device_ms=dev_ms)
+            del B, S, got, again, ref, scale, diff
             torch.cuda.empty_cache()
     return summary
 
@@ -354,30 +371,38 @@ def phase_kin40k(card: str) -> None:
     check(abs(nll - JAX_KIN40K["nll"]) <= KIN40K_NLL_ATOL, f"kin40k nll {nll} vs JAX {JAX_KIN40K['nll']}")
 
 
-def phase_uci2m(card: str) -> None:
-    import torch
-    import gp_grief_tpu_torch as gpt
-    from gp_grief_tpu_torch.ops.cuda import phi_fused
-
+def uci2m_data():
+    """benchmarks/run_configs.py:uci2m: 1.9M training and 100k test points in
+    10-D, and the test points' noise-free targets."""
     rng = np.random.default_rng(0)
     n, d = 2_000_000, 10
     x = rng.uniform(-1, 1, size=(n, d)).astype(np.float32)
     f = np.sin(2 * x[:, 0]) * np.cos(x[:, 1]) + 0.4 * x[:, 2] * x[:, 3] + np.tanh(x[:, 4] + x[:, 5])
     y = (f + 0.1 * rng.standard_normal(n)).astype(np.float32)
     n_te = min(100_000, max(1, n // 5))
-    xte, fte = x[-n_te:], f[-n_te:]
-    xtr, ytr = x[:-n_te], y[:-n_te]
+    return x[:-n_te], y[:-n_te], x[-n_te:], f[-n_te:]
 
+
+def uci2m_build(xtr, ytr):
+    """uci2m_synth's model build on the card: the grid, the basis and the
+    chunked statistics (K1 on every chunk)."""
+    import torch
+    import gp_grief_tpu_torch as gpt
+
+    grid = gpt.InducingGrid.build(xtr[:200000], mbar=10)
+    return gpt.GPGriefModel(
+        xtr, ytr, gpt.make_kernel("rbf", lengthscale=1.0, input_dim=1), grid,
+        n_eigs=400, noise_var=0.2, dtype=torch.float32, device="cuda",
+    )
+
+
+def phase_uci2m(card: str) -> None:
+    from gp_grief_tpu_torch.ops.cuda import phi_fused
+
+    xtr, ytr, xte, fte = uci2m_data()
+    n_te, d = xte.shape
     before = phi_fused.launches
-
-    def build():
-        grid = gpt.InducingGrid.build(xtr[:200000], mbar=10)
-        return gpt.GPGriefModel(
-            xtr, ytr, gpt.make_kernel("rbf", lengthscale=1.0, input_dim=1), grid,
-            n_eigs=400, noise_var=0.2, dtype=torch.float32, device="cuda",
-        )
-
-    model, t_build = timed(build)
+    model, t_build = timed(lambda: uci2m_build(xtr, ytr))
     chunks = -(-xtr.shape[0] // model.stats_chunk)
     check(phi_fused.launches - before >= chunks, f"uci2m stats launched K1 fewer than {chunks} times")
     res, t_train = timed(lambda: model.optimize(optimizer="adam", max_iters=150, learning_rate=0.05))
@@ -797,7 +822,7 @@ def phase_ski_kernels(card: str) -> dict:
     import torch
     from gp_grief_tpu_torch.ops import interp as tint
     from gp_grief_tpu_torch.ops import interp_stencil as tst
-    from gp_grief_tpu_torch.ops.cuda import interp_wt, wtw_stencil
+    from gp_grief_tpu_torch.ops.cuda import interp_wt, stencil as k5, wtw_stencil
 
     summary = {}
     for kname, label, which, B in SKI_KERNEL_SHAPES:
@@ -833,7 +858,14 @@ def phase_ski_kernels(card: str) -> dict:
                     lib_rhs = v.T.contiguous()
                     fn, plain = (lambda: wtw_stencil(st, v)), (lambda: tst.stencil_apply_ref(st, v))
                     nbytes = size * (D * M + 2 * B * M) + 8 * D
-                    ops, extra = 2.0 * D * B * M, {"offsets": D, "nonzeros": int(lib_mat.values().numel())}
+                    plan = k5._cached_plan(st, B, size)[0]
+                    # The other member on the same operands: the same bits.
+                    other = (k5.StencilPlan("cell", k5.MAX_ROWS, -(-B // k5.MAX_ROWS)) if plan.member == "window"
+                             else None)
+                    other_out = k5._launch(st, v, other) if other is not None else None
+                    ops, extra = 2.0 * D * B * M, {"offsets": D, "nonzeros": int(lib_mat.values().numel()),
+                                                   "member": plan.member, "cells": plan.cells,
+                                                   "buffers": plan.buffers}
                 got = fn()
                 again = fn()
                 torch.cuda.synchronize()
@@ -844,6 +876,10 @@ def phase_ski_kernels(card: str) -> dict:
                 abs_err = float((got - ref).abs().max())
                 rel_lib = float((lib - ref).abs().max()) / scale
                 identical = bool(torch.equal(got, again))
+                if kname == "wtw_stencil" and other_out is not None:
+                    extra["cell_member_identical"] = bool(torch.equal(got, other_out))
+                    identical = identical and extra["cell_member_identical"]
+                    del other_out
                 finite = tuple(got.shape) == (B, M) and bool(torch.isfinite(got).all())
                 ms = cuda_ms(fn)
                 dev_ms = device_ms(fn)
@@ -859,8 +895,10 @@ def phase_ski_kernels(card: str) -> dict:
                   "gb_per_s": nbytes / (ms * 1e-3) / 1e9, "card": card})
             check(finite, f"{kname} {label} {tag}: bad output")
             check(rel <= SKI_KERNEL_TOL[tag], f"{kname} {label} {tag}: rel err {rel:.3e} vs plain")
-            check(identical, f"{kname} {label} {tag}: two launches differ")
+            check(identical, f"{kname} {label} {tag}: two launches (or the two members) differ")
             entry = summary.setdefault(kname, {"max_abs_err": 0.0})
+            if kname == "wtw_stencil":
+                entry.setdefault("members", {})[f"{label} {tag}"] = extra["member"]
             if tag == "float32":
                 entry["max_abs_err"] = max(entry["max_abs_err"], abs_err)
                 if label in SKI_CONFIGS:
@@ -1245,8 +1283,9 @@ def main() -> int:
     entries.append(
         {"name": "phi_fused", "route": "cuda", "source": "gp_grief_tpu_torch/csrc/phi_fused.cu",
          "replaces": "gp_grief_tpu/ops/pallas/phi_pallas.py:93", "launches": phi_fused.launches,
-         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None})
+         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "device_ms": k1["device_ms"], "plain_ms": k1["plain_ms"],
+         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None,
+         "uci2m_chunk_ms": k1["uci2m_chunk_ms"], "uci2m_chunk_device_ms": k1["uci2m_chunk_device_ms"]})
 
     # Phase 7: the grid GP path.
     reset()
@@ -1279,7 +1318,8 @@ def main() -> int:
                         "replaces": replaces, "launches": fn.launches, "max_abs_err": k["max_abs_err"],
                         "ms": k["ms"], "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
                         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": k["library_ms"],
-                        "launches_per_nlml": {c: per_nlml[c][key] for c in SKI_CONFIGS}})
+                        "launches_per_nlml": {c: per_nlml[c][key] for c in SKI_CONFIGS},
+                        **({"members": k["members"]} if "members" in k else {})})
 
     # Phase 10: the per-axis passes' path (K7 as a CG operator, K6-K8 at the
     # 32^5 shapes).

@@ -56,6 +56,7 @@
 
 #include <cstdint>
 
+#include "device_helpers.cuh"
 #include "device_scope.cuh"
 
 namespace {
@@ -66,10 +67,6 @@ constexpr int LONG = 64;              // longer segments are summed by a warp
 constexpr int DIRECT = 2;             // streams of at most this many entries a cell skip the staging
 constexpr int SMEM_BUDGET = 40960;    // bytes of shared memory for a chunk
 constexpr int ERR_SHAPE = -1;
-
-// acc + a * b rounded once, in T: the FMA chain of every cell's sum.
-__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
-__device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
 
 // Shared-memory layout of one chunk of CH entries: w[CH], g[CH][ldg] (the
 // gathered u values, ldg = nb rounded up to odd), then the long cells' slots:

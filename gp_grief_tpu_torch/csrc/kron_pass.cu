@@ -102,13 +102,13 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <mutex>
 
+#include "device_helpers.cuh"
 #include "device_scope.cuh"
+#include "resident_grid.cuh"
 
 namespace {
 
-constexpr int SMEM_LIMIT = 232448;  // bytes a block can use on sm_90
 constexpr int SMEM_PER_SM = 233472;  // 228 KB an SM shares among its blocks
 constexpr int SMEM_RESERVED = 1024;  // taken by the runtime for each resident block
 // A block of at most this many bytes of shared memory leaves room for a second
@@ -136,51 +136,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 template <bool FAST> __device__ __forceinline__ float grade(float v) {
   return FAST ? __bfloat162float(__float2bfloat16_rn(v)) : v;
-}
-
-// The launch set-up of one kernel, made once: its shared-memory attributes
-// on each device, and the blocks the card holds at each (threads, bytes) it
-// was launched with.  Guarded by a mutex: ctypes calls run without the GIL.
-struct LaunchCache {
-  std::mutex m;
-  uint64_t ready = 0;  // bit d: attributes set on device d
-  int n = 0;
-  int dev[32], threads[32], smem[32], resident[32];
-};
-
-// Blocks for `work` items of a persistent kernel: as many as the SMs hold.
-// The kernel may take up to SMEM_LIMIT bytes of dynamic shared memory, and
-// asks for the SM's largest shared-memory share, so that as many blocks as
-// fit are resident.
-template <typename Kern>
-cudaError_t resident_grid(Kern kern, LaunchCache& c, int threads, int smem, int64_t work, int& grid) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  std::lock_guard<std::mutex> lock(c.m);
-  if (dev >= 64 || !(c.ready >> dev & 1)) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return err;
-    if (dev < 64) c.ready |= uint64_t{1} << dev;
-  }
-  int resident = 0;
-  for (int i = 0; i < c.n && !resident; ++i)
-    if (c.dev[i] == dev && c.threads[i] == threads && c.smem[i] == smem) resident = c.resident[i];
-  if (!resident) {
-    int per_sm = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    resident = (per_sm < 1 ? 1 : per_sm) * sms;
-    if (c.n < 32) {
-      c.dev[c.n] = dev, c.threads[c.n] = threads, c.smem[c.n] = smem, c.resident[c.n] = resident;
-      ++c.n;
-    }
-  }
-  grid = static_cast<int>(work < resident ? work : resident);
-  return cudaSuccess;
 }
 
 // ---------------------------------------------------------------------------
@@ -428,16 +383,6 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if (bytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(src_bytes));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N> __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
 template <typename T> __device__ __forceinline__ T zero_of();
 template <> __device__ __forceinline__ float zero_of<float>() { return 0.f; }
 template <> __device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() { return __float2bfloat16_rn(0.f); }
@@ -462,7 +407,12 @@ __device__ __forceinline__ void stage_block(T* dst, int ld_s, const T* src, int6
     const int r = i / per_row, c = (i - r * per_row) * ch;
     int valid = r < rows_valid ? cols_valid - c : 0;
     valid = valid < 0 ? 0 : (valid > ch ? ch : valid);
-    cp_async(dst + r * ld_s + c, valid ? src + r * ld_g + c : base, copy, valid * static_cast<int>(sizeof(T)));
+    const T* from = valid ? src + r * ld_g + c : base;
+    const int nbytes = valid * static_cast<int>(sizeof(T));
+    if (copy == 16)
+      cp_async<16>(dst + r * ld_s + c, from, nbytes);
+    else
+      cp_async<4>(dst + r * ld_s + c, from, nbytes);
   }
 }
 

@@ -38,8 +38,9 @@ _INT = ctypes.c_int
 _I64 = ctypes.c_longlong
 # name -> argtypes of every C entry point in csrc/.
 _SIGNATURES = {
-    "gp_grief_phi_fused_f32": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR],
-    "gp_grief_phi_fused_f64": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR],
+    # B, S, out, d, n, m, p, vec, device, stream
+    "gp_grief_phi_fused_f32": [_PTR] * 3 + [_INT] * 6 + [_PTR],
+    "gp_grief_phi_fused_f64": [_PTR] * 3 + [_INT] * 6 + [_PTR],
     # x, out, K0, K1, K2, g, n0..n2, o0..o2, pre, post, P, R, mma, fast, x_bf16, out_bf16, device, stream
     "gp_grief_kron_tile_pass": [_PTR] * 5 + [_INT] * 7 + [_I64, _I64] + [_INT] * 7 + [_PTR],
     # x, out, K, n, o, pre, post, tile width, fast, x_bf16, out_bf16, device, stream
@@ -47,9 +48,9 @@ _SIGNATURES = {
     # u (point-major), src, w, start, end, out, B, M, L, device, stream
     "gp_grief_interp_wt_f32": [_PTR] * 6 + [_INT, _I64, _I64, _INT, _PTR],
     "gp_grief_interp_wt_f64": [_PTR] * 6 + [_INT, _I64, _I64, _INT, _PTR],
-    # v, tables, deltas, D, out, B, M, device, stream
-    "gp_grief_wtw_stencil_f32": [_PTR] * 3 + [_INT, _PTR, _INT, _I64, _INT, _PTR],
-    "gp_grief_wtw_stencil_f64": [_PTR] * 3 + [_INT, _PTR, _INT, _I64, _INT, _PTR],
+    # v, tables, deltas, D, out, B, M, plan (int64 array), copy bytes, device, stream
+    "gp_grief_wtw_stencil_f32": [_PTR] * 3 + [_INT, _PTR, _INT, _I64, _PTR, _INT, _INT, _PTR],
+    "gp_grief_wtw_stencil_f64": [_PTR] * 3 + [_INT, _PTR, _INT, _I64, _PTR, _INT, _INT, _PTR],
 }
 
 

@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from gp_grief_tpu_torch.ops.cuda import _build
+
 __all__ = ["phi_fused", "phi_fused_ref"]
 
 _SYMBOLS = {torch.float32: "gp_grief_phi_fused_f32", torch.float64: "gp_grief_phi_fused_f64"}
@@ -54,12 +56,14 @@ def _launch(B: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n, p), dtype=B.dtype, device=B.device)
     if out.numel() == 0:
         return out
-    from gp_grief_tpu_torch.ops.cuda._build import load_library
-
-    fn = getattr(load_library(), _SYMBOLS[B.dtype])
-    with torch.cuda.device(B.device):
-        stream = torch.cuda.current_stream(B.device).cuda_stream
-        err = fn(B.data_ptr(), S.data_ptr(), out.data_ptr(), d, n, m, p, stream)
+    # S's rows start on 16-byte boundaries: 16-byte copies of S.
+    vec = int(p % (16 // B.element_size()) == 0 and S.data_ptr() % 16 == 0)
+    # The library is loaded once; the device's raw stream handle, with no
+    # device context or Stream object per call.
+    fn = getattr(_build.load_library(), _SYMBOLS[B.dtype])
+    device = B.device.index
+    err = fn(B.data_ptr(), S.data_ptr(), out.data_ptr(), d, n, m, p, vec, device,
+             torch._C._cuda_getCurrentRawStream(device))
     if err != 0:
         raise RuntimeError(f"phi_fused kernel launch failed with cudaError {err} at (d, n, m, p) = {(d, n, m, p)}")
     phi_fused.launches += 1

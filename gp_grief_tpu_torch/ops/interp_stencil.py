@@ -38,7 +38,9 @@ class WtWStencil(NamedTuple):
     ``tables (D, M)``: coefficient rows, one per flat-index offset;
     ``deltas (D,)`` ascending flat shifts (a tuple, and ``delta_t`` the same
     as an int64 tensor on the tables' device); ``d0s (D,)`` each offset's
-    leading-dimension component; ``shape`` the grid shape.
+    leading-dimension component; ``shape`` the grid shape.  ``plans``: K5's
+    launch plans by ``(B, itemsize)``, made by its wrapper at a stencil's
+    first launch at that batch and kept here.
     """
 
     tables: torch.Tensor
@@ -46,6 +48,7 @@ class WtWStencil(NamedTuple):
     delta_t: torch.Tensor
     d0s: Tuple[int, ...]
     shape: Tuple[int, ...]
+    plans: dict
 
     @property
     def M(self) -> int:
@@ -123,6 +126,7 @@ def build_wtw_stencil(
         delta_t=torch.as_tensor(deltas, dtype=torch.int64, device=device),
         d0s=tuple(int(d0_of[dl]) for dl in deltas),
         shape=tuple(st.shape),
+        plans={},
     )
 
 

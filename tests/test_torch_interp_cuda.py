@@ -17,7 +17,7 @@ import torch
 import gp_grief_tpu_torch as gpt
 from gp_grief_tpu_torch.ops import interp as tint
 from gp_grief_tpu_torch.ops import interp_stencil as tst
-from gp_grief_tpu_torch.ops.cuda import _build, interp as k4, interp_wt, kron as tk, wtw_stencil
+from gp_grief_tpu_torch.ops.cuda import _build, interp as k4, interp_wt, kron as tk, stencil as k5, wtw_stencil
 from gp_grief_tpu_torch.ops.kron_fast import kernel_route, kron_matvec_fast
 
 pytestmark = pytest.mark.cuda
@@ -118,6 +118,54 @@ def test_wtw_stencil_matches_plain_version_and_repeats_bits(cuda, shape, n, dtyp
     assert wtw_stencil.launches == before + 2
     assert torch.equal(got, again)
     assert _rel(got, tst.stencil_apply_ref(st, v)) <= TOL[dtype]
+
+
+# (shape, n, B): K5's members on a size-1 extent, d = 1 and d = 5, at the
+# batches the lattice dual (9), two slabs (17), one row (1) and a predict
+# chunk's several slabs (130) give it.
+MEMBER_CASES = [((7, 5, 6), 400, 9), ((12, 9, 10), 5000, 17), ((16, 16, 16, 16), 20000, 1),
+                ((16, 16, 16, 16), 20000, 130), ((20, 1, 30), 2000, 9), ((3000,), 500, 9),
+                ((10, 10, 10, 10, 10), 20000, 9), ((10, 10, 10, 10, 10), 20000, 16), ((32, 32, 32), 3000, 17)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,n,B", MEMBER_CASES)
+def test_wtw_stencil_members_match_plain_version_and_each_other(cuda, shape, n, B, dtype):
+    """The plan's member, the cell member and (where the plan picks the
+    window member) the window member with one buffer give the same bits,
+    each twice, and match the plain version."""
+    st = tst.build_wtw_stencil(_geometry(shape, n, seed=6), dtype=dtype, device=cuda)
+    v = torch.randn((B, st.M), generator=torch.Generator().manual_seed(7), dtype=torch.float64).to(cuda, dtype)
+    plan = k5._cached_plan(st, B, v.element_size())[0]
+    plans = [plan, k5.StencilPlan("cell", k5.MAX_ROWS, -(-B // k5.MAX_ROWS))]
+    if plan.member == "window" and plan.buffers == 2:
+        plans.append(plan._replace(buffers=1))
+    ref = tst.stencil_apply_ref(st, v)
+    outs = []
+    for pl in plans:
+        before = wtw_stencil.launches
+        got = k5._launch(st, v, pl)
+        again = k5._launch(st, v, pl)
+        torch.cuda.synchronize()
+        assert wtw_stencil.launches == before + 2
+        assert got.shape == (B, st.M) and torch.equal(got, again), pl
+        assert _rel(got, ref) <= TOL[dtype], pl
+        outs.append(got)
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    # The public entry point runs the plan's member, made once and kept on the stencil.
+    assert torch.equal(wtw_stencil(st, v), outs[0])
+    assert list(st.plans) == [(B, v.element_size())] and st.plans[(B, v.element_size())][0] == plan
+
+
+def test_wtw_stencil_plan_reaches_both_members(cuda):
+    """d = 5 on 10^5 cells: float32 at B = 9 gets the window member; float64
+    at 16 rows a slab has no window that fits and gets the cell member."""
+    iw = _geometry((10,) * 5, 20000, seed=6)
+    members = {}
+    for dtype, B in ((torch.float32, 9), (torch.float64, 16)):
+        st = tst.build_wtw_stencil(iw, dtype=dtype, device=cuda)
+        members[dtype] = k5._cached_plan(st, B, st.tables.element_size())[0].member
+    assert members == {torch.float32: "window", torch.float64: "cell"}
 
 
 def test_kernels_differentiate(cuda):

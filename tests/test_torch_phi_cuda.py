@@ -58,6 +58,47 @@ def test_kernel_matches_plain_version(cuda, shape, dtype):
     assert float(((got - ref).abs() / scale).max()) <= TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("p", [211, 400])
+@pytest.mark.parametrize("m", [10, 16, 37])
+@pytest.mark.parametrize("d", [2, 8, 10])
+def test_kernel_depths_widths_and_ragged_rows(cuda, d, m, p, dtype):
+    """Depths under, at and over one 16-deep stage, a width the 80-column
+    tile divides and one it does not, and a row count no tile divides; two
+    launches give the same bits."""
+    B, S = _operands(d, 1031, m, p, dtype, cuda, seed=d + m + p)
+    got = phi_fused(B, S)
+    again = phi_fused(B, S)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    ref = phi_fused_ref(B, S)
+    scale = phi_fused_ref(B.abs(), S.abs()).clamp_min(torch.finfo(dtype).tiny)
+    assert float(((got - ref).abs() / scale).max()) <= TOL[dtype]
+
+
+def test_build_or_launch_failure_raises(cuda, monkeypatch):
+    from gp_grief_tpu_torch.ops.cuda import _build
+
+    B, S = _operands(3, 64, 8, 16, torch.float32, cuda)
+
+    def no_build():
+        raise RuntimeError("nvcc failed with exit code 1")
+
+    monkeypatch.setattr(_build, "load_library", no_build)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        phi_fused(B, S)
+
+    class Refusing:  # every entry point reports cudaErrorInvalidConfiguration
+        def __getattr__(self, name):
+            return lambda *args: 9
+
+    monkeypatch.setattr(_build, "load_library", lambda: Refusing())
+    before = phi_fused.launches
+    with pytest.raises(RuntimeError, match="cudaError 9"):
+        phi_fused(B, S)
+    assert phi_fused.launches == before
+
+
 def test_unsupported_dtype_raises(cuda):
     B, S = _operands(3, 64, 8, 16, torch.float16, cuda)
     before = phi_fused.launches

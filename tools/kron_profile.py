@@ -16,8 +16,12 @@ power limit.  Then, for each grid configuration of chip_smoke.GRID_CONFIGS,
 one CG log-likelihood after a warm-up: wall time, device time, idle share
 and its ten largest device items.  ``--only`` keeps the cases and
 configurations whose label or entry-point name contains one of the
-substrings; ``--only interp_wt`` / ``wtw_stencil`` adds K4 / K5 at phase 8's
-float32 shapes (not run without ``--only``).  The kernels are built from the checkout's csrc/ at first use.
+substrings.  Run only when named by ``--only``: ``interp_wt`` / ``wtw_stencil``
+(K4 / K5 at phase 8's float32 shapes), ``phi_fused`` (K1 at phase 3's
+float32 shapes), a SKI configuration's name (its float32 NLML after a first
+call, profiled as the grid configurations' are) and ``uci2m`` (uci2m_synth's
+model build with its chunked statistics, profiled).  The kernels are built
+from the checkout's csrc/ at first use.
 """
 
 from __future__ import annotations
@@ -137,6 +141,34 @@ def ski_cases():
             yield label, kname, lambda st=st, v=v: wtw_stencil(st, v)
 
 
+def phi_cases():
+    """(label, run()) for K1 at chip_smoke.py's phase-3 shapes, float32."""
+    import torch
+    from gp_grief_tpu_torch.ops.cuda import phi_fused
+
+    for name, d, n, m, p in chip_smoke.KERNEL_SHAPES:
+        with torch.no_grad():
+            B, S = chip_smoke.phi_operands(d, n, m, p, torch.float32, "cuda")
+        yield name, lambda B=B, S=S: phi_fused(B, S)
+
+
+def profile_call(label: str, fn, card: str, extra=dict) -> None:
+    """One call of ``fn`` under the profiler: wall, device time, idle share,
+    the ten largest device items and ``extra()``'s keys."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    total, items = chip_smoke.device_items(prof)
+    print(json.dumps({"profile": label, "wall_ms": wall * 1e3, "device_ms": total,
+                      "idle_share": 1 - total / (wall * 1e3), **extra(), "items": items, "card": card}), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -178,7 +210,31 @@ def main() -> int:
             print(json.dumps({"case": label, "kernel": kname, "precision": "float32", "cuda_ms": ms,
                               "host_us": host_us, "kernels": kernels, "card": card}), flush=True)
 
-    from torch.profiler import ProfilerActivity, profile as tprofile
+    if args.only and "phi_fused" in args.only:
+        for label, run in phi_cases():
+            with torch.no_grad():
+                ms = chip_smoke.cuda_ms(run, reps=args.reps)
+                kernels = profile(run, args.reps)
+                host_us = host_time(run, args.reps) * 1e6
+            print(json.dumps({"case": label, "kernel": "phi_fused", "precision": "float32", "cuda_ms": ms,
+                              "host_us": host_us, "kernels": kernels, "card": card}), flush=True)
+
+    for name in chip_smoke.SKI_CONFIGS:
+        if not (args.only and name in args.only):
+            continue
+        x, y, xg = chip_smoke.ski_data(name)
+        model = chip_smoke.ski_model(name, x, y, xg, torch.float32)
+        model.log_likelihood()  # builds the plans
+        profile_call(f"{name} float32 log_likelihood", model.log_likelihood, card)
+        del model
+        torch.cuda.empty_cache()
+
+    if args.only and "uci2m" in args.only:
+        xtr, ytr, _, _ = chip_smoke.uci2m_data()
+        build = lambda: chip_smoke.uci2m_build(xtr, ytr)  # noqa: E731
+        build()  # warm-up: the first build pays for the library load and the allocator
+        profile_call("uci2m_synth model build and chunked statistics", build, card)
+        torch.cuda.empty_cache()
 
     for name in chip_smoke.GRID_CONFIGS:
         if args.only and not any(s in name for s in args.only):
@@ -186,16 +242,8 @@ def main() -> int:
         xg, y = chip_smoke.grid_data(name)
         model = chip_smoke.grid_model(name, xg, y, torch.float32, "cuda")
         model.log_likelihood()  # warm-up
-        torch.cuda.synchronize()
-        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            model.log_likelihood()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        total, items = chip_smoke.device_items(prof)
-        print(json.dumps({"profile": f"{name} CG log_likelihood", "wall_ms": wall * 1e3, "device_ms": total,
-                          "idle_share": 1 - total / (wall * 1e3), "cg_iterations": model.cg_info.iterations,
-                          "items": items, "card": card}), flush=True)
+        profile_call(f"{name} CG log_likelihood", model.log_likelihood, card,
+                     lambda: {"cg_iterations": model.cg_info.iterations})
         del model
         torch.cuda.empty_cache()
     return 0
