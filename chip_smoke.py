@@ -9,8 +9,9 @@ non-zero without printing the final line:
 1. device  — a CUDA device must exist; prints its name and power limit.
 2. build   — compiles the port's CUDA kernels from gp_grief_tpu_torch/csrc/.
 3. kernel  — K1 (the fused Φ assembly) against its plain PyTorch version on
-             the card, float32 and float64, at the main path's shapes and one
-             ragged shape; two launches bit-identical; CUDA-event times of
+             the card, float32 and float64, at the main path's shapes (d100's
+             (100, 1000, 10, 300) among them) and one ragged shape; two
+             launches bit-identical; CUDA-event times of
              both and the kernel's device time, beside the bound (at the
              FP32 rate outside the tensor cores) and the same work's bound
              at 3xTF32's tensor-core rate.
@@ -21,9 +22,15 @@ non-zero without printing the final line:
              hyperparameters, refresh_basis, 200 reweight steps, predict.
              The two runs must agree bit for bit, and the predictions are
              held to a recorded JAX run of the same config.
-5. uci2m   — the uci2m_synth config in closed form at n = 2M
+5. uci2m   — the uci2m_synth config at n = 2M
              (benchmarks/run_configs.py:uci2m): chunked statistics, 150
-             reweight steps, predict on 100k points.
+             reweight steps, predict on 100k points; then its iterative NLML
+             (CG + SLQ, rank-300 whitening, 8 probes) on the full 1.9M-row
+             operator, Φ built by K1, held to the closed form, profiled
+             (wall, device time, idle share, peak memory).
+   configs — sine1d, grid3d and d100 through gp_grief_tpu_torch.run_configs
+             in float64, held to a recorded float64 JAX run of each
+             (JAX_CONFIGS); d100 launches K1.
 6. kron    — K2 (kron_matvec_slab) and K3 (kron_matvec_fused) against their
              plain version on the card, both grades, at the grid
              configurations' lattices, one d=5 lattice and one ragged d=2
@@ -53,8 +60,9 @@ non-zero without printing the final line:
              launches); plan build times; LOVE on ski100k_data.
 
 Then the ``nvidia-smi`` name/power-limit line, one ``{"kernels": [...]}``
-line (K1 launches from phases 4-5, K2/K3 from phase 7, K4/K5 from phase 9's
-float32 runs) and, last, ``{"ok": true, "device": {...}}``.  This script imports no JAX.
+line (K1 launches from phases 4-5 and configs, K2/K3 from phase 7, K4/K5 from
+phase 9's float32 runs, K6-K8 from phase 10) and, last, ``{"ok": true,
+"device": {...}}``.  This script imports no JAX.
 """
 
 from __future__ import annotations
@@ -68,6 +76,11 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+# The configurations of benchmarks/run_configs.py as the port's runner builds
+# them: data, models, recipes.
+from gp_grief_tpu_torch import run_configs as rc  # noqa: E402
+from gp_grief_tpu_torch.run_configs import kin40k_data, uci2m_data  # noqa: E402
 
 # Fresh JAX run of the same kin40k_synth config, float32 on CPU, jax 0.9.0, at
 # commit abf10e0:  JAX_PLATFORMS=cpu python benchmarks/run_configs.py kin40k
@@ -107,6 +120,13 @@ JAX_KIN40K_INIT = {
 KIN40K_INIT_RTOL = 1e-9
 # uci2m_synth labels carry noise of sd 0.1; the JAX run recorded rmse 0.1017.
 UCI2M_RMSE_MAX = 0.12
+# uci2m's iterative NLML (8 probes, rank-300 whitening) against its closed
+# form, relative.  The JAX package recorded UCI2M_JAX_GAP at this operating
+# point (benchmarks/RESULTS_r13.md:65).  The estimate is random in its
+# probes: on an H100 the port gave 2.36e-5 with the default generator and
+# 1.73e-5 with seed 1 (PERF.md §6, PR 8); the limit is four times the larger.
+UCI2M_GAP_MAX = 1e-4
+UCI2M_JAX_GAP = 2.2e-5
 
 # K1 error, per element, relative to Π_d Σ_k |B_dk S_kj| (the scale of the
 # rounding error of a product of d m-deep dots): both sides round each of
@@ -124,13 +144,20 @@ KERNEL_TOL = {"float32": 1e-5, "float64": 1e-12}
 H100_BYTES_PER_S = 3.35e12
 H100_FLOPS = {"highest": 495e12 / 3, "default": 989e12, "fp32": 67e12}
 
-# (name, d, n, m, p): the shapes the main path hands K1.
+# (name, d, n, m, p): the shapes the main path hands K1.  uci2m's stats
+# chunk is also each row chunk of its iterative NLML's Φ; d100's is its
+# whole Φ (statistics and predict on the training rows).
 KERNEL_SHAPES = [
     ("kin40k_stats", 8, 30000, 16, 400),
     ("kin40k_predict", 8, 10000, 16, 400),
     ("uci2m_stats_chunk", 10, 131072, 10, 400),
+    ("d100_stats", 100, 1000, 10, 300),
     ("ragged", 5, 4099, 37, 211),
 ]
+# The data box and lengthscale of K1's operands where a shape's config sets
+# them (run_configs.d100: x in [0, 1]^100, RBF lengthscale 1.5); else
+# [-1, 1] and 0.7.
+KERNEL_OPERANDS = {"d100_stats": dict(box=(0.0, 1.0), lengthscale=1.5)}
 
 
 def emit(obj) -> None:
@@ -186,19 +213,19 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def phi_operands(d, n, m, p, dtype, device, seed=0):
-    """K1's operands as the main path builds them: RBF cross-covariances to
-    an m-point grid per dimension, and the scaled top-p eigenvector
-    selections of the grid Grams."""
+def phi_operands(d, n, m, p, dtype, device, seed=0, box=(-1.0, 1.0), lengthscale=0.7):
+    """K1's operands as the main path builds them: RBF cross-covariances of
+    points uniform in ``box`` to an m-point grid per dimension, and the
+    scaled top-p eigenvector selections of the grid Grams."""
     import torch
     import gp_grief_tpu_torch as gpt
     from gp_grief_tpu_torch.kernels.grief import _phi_fused_operands, build_basis
     from gp_grief_tpu_torch.kernels.grid import cross_cov_grid
 
-    x = np.random.default_rng(seed).uniform(-1, 1, size=(n, d))
+    x = np.random.default_rng(seed).uniform(*box, size=(n, d))
     grid = gpt.InducingGrid.build(x, mbar=m)
     xg = [torch.as_tensor(g, dtype=dtype, device=device) for g in grid.xg]
-    kerns = [gpt.make_kernel("rbf", lengthscale=0.7, dtype=dtype, device=device) for _ in range(d)]
+    kerns = [gpt.make_kernel("rbf", lengthscale=lengthscale, dtype=dtype, device=device) for _ in range(d)]
     with torch.no_grad():
         basis = build_basis(kerns, xg, p, dim_noise_var=1e-6)
         Kx = cross_cov_grid(kerns, torch.as_tensor(x, dtype=dtype, device=device), xg)
@@ -214,7 +241,7 @@ def phase_kernel(card: str) -> dict:
         for dtype in (torch.float32, torch.float64):
             tag = str(dtype).replace("torch.", "")
             with torch.no_grad():
-                B, S = phi_operands(d, n, m, p, dtype, "cuda")
+                B, S = phi_operands(d, n, m, p, dtype, "cuda", **KERNEL_OPERANDS.get(name, {}))
                 got = phi_fused(B, S)
                 again = phi_fused(B, S)
                 torch.cuda.synchronize()
@@ -251,6 +278,8 @@ def phase_kernel(card: str) -> dict:
                                    bound_by="operations" if t_ops >= t_bytes else "bytes")
                 elif name == "uci2m_stats_chunk":
                     summary.update(uci2m_chunk_ms=ms, uci2m_chunk_device_ms=dev_ms)
+                elif name == "d100_stats":
+                    summary.update(d100_ms=ms, d100_device_ms=dev_ms)
             del B, S, got, again, ref, scale, diff
             torch.cuda.empty_cache()
     return summary
@@ -266,27 +295,8 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def kin40k_data():
-    """benchmarks/run_configs.py:kin40k, synthetic branch: 30k train, 10k test."""
-    rng = np.random.default_rng(0)
-    n, d = 40000, 8
-    x = rng.uniform(-1, 1, size=(n, d)).astype(np.float32)
-    f = (np.sin(3 * x[:, 0] * x[:, 1]) + x[:, 2] * np.cos(2 * x[:, 3])
-         + np.sin(x[:, 4] + 2 * x[:, 5]) * x[:, 6] + 0.5 * x[:, 7] ** 2)
-    y = (f + 0.05 * rng.standard_normal(n)).astype(np.float32)
-    return x[:30000], y[:30000], x[30000:], y[30000:], f[30000:]
-
-
 def kin40k_model(xtr, ytr, dtype):
-    import torch
-    import gp_grief_tpu_torch as gpt
-
-    grid = gpt.InducingGrid.build(xtr, mbar=16)
-    kerns = [gpt.make_kernel("rbf", lengthscale=0.7) for _ in range(xtr.shape[1])]
-    return gpt.GPGriefModel(
-        xtr, ytr, kerns, grid, n_eigs=400, noise_var=0.1, dtype=dtype,
-        device="cuda", opt_kernel_params=True, dim_noise_var=1e-6,
-    )
+    return rc.kin40k_model(xtr, ytr, dtype, "cuda")
 
 
 def phase_kin40k_init(card: str, data) -> None:
@@ -371,29 +381,10 @@ def phase_kin40k(card: str) -> None:
     check(abs(nll - JAX_KIN40K["nll"]) <= KIN40K_NLL_ATOL, f"kin40k nll {nll} vs JAX {JAX_KIN40K['nll']}")
 
 
-def uci2m_data():
-    """benchmarks/run_configs.py:uci2m: 1.9M training and 100k test points in
-    10-D, and the test points' noise-free targets."""
-    rng = np.random.default_rng(0)
-    n, d = 2_000_000, 10
-    x = rng.uniform(-1, 1, size=(n, d)).astype(np.float32)
-    f = np.sin(2 * x[:, 0]) * np.cos(x[:, 1]) + 0.4 * x[:, 2] * x[:, 3] + np.tanh(x[:, 4] + x[:, 5])
-    y = (f + 0.1 * rng.standard_normal(n)).astype(np.float32)
-    n_te = min(100_000, max(1, n // 5))
-    return x[:-n_te], y[:-n_te], x[-n_te:], f[-n_te:]
-
-
 def uci2m_build(xtr, ytr):
     """uci2m_synth's model build on the card: the grid, the basis and the
     chunked statistics (K1 on every chunk)."""
-    import torch
-    import gp_grief_tpu_torch as gpt
-
-    grid = gpt.InducingGrid.build(xtr[:200000], mbar=10)
-    return gpt.GPGriefModel(
-        xtr, ytr, gpt.make_kernel("rbf", lengthscale=1.0, input_dim=1), grid,
-        n_eigs=400, noise_var=0.2, dtype=torch.float32, device="cuda",
-    )
+    return rc.uci2m_model(xtr, ytr, "cuda")
 
 
 def phase_uci2m(card: str) -> None:
@@ -417,6 +408,129 @@ def phase_uci2m(card: str) -> None:
           "s_build_and_stats": t_build, "s_train_150_steps": t_train, "s_predict_100k": t_pred,
           "card": card})
     check(rmse <= UCI2M_RMSE_MAX, f"uci2m rmse {rmse} > {UCI2M_RMSE_MAX}")
+    phase_uci2m_iterative(card, model)
+
+
+def kernel_groups(items) -> dict:
+    """A profile's device time by kind of kernel (ms): K1, GEMMs, reductions,
+    elementwise updates, the rest."""
+    groups = {}
+    for it in items:
+        name = it["name"].lower()
+        kind = ("K1" if "phi_fused" in name else "gemm" if any(k in name for k in ("gemm", "xmma", "cutlass"))
+                else "reduce" if "reduce" in name else "elementwise" if "elementwise" in name else "other")
+        groups[kind] = groups.get(kind, 0.0) + it["ms"]
+    return groups
+
+
+def phase_uci2m_iterative(card: str, model) -> None:
+    """uci2m's iterative NLML at the trained optimum, on the full 1.9M-row
+    operator (run_configs.UCI2M_ITERATIVE, benchmarks/run_configs.py:234-237),
+    against the closed form.  The first call builds Φ (K1 in row chunks) and
+    the rank-300 factor, profiled; a second call with other probes reuses
+    them.  Then one operator apply and one whitening apply at the driver's
+    batch (1 + probe_chunk rows), timed alone."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gp_grief_tpu_torch.ops.cuda import phi_fused
+    from gp_grief_tpu_torch.ops.precond import check_whitening, lowrank_sqrt_ops
+
+    ll_closed = model.log_likelihood()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem_before = torch.cuda.memory_allocated()
+    before = phi_fused.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ll_iter, wall = timed(lambda: model.log_likelihood_iterative_segmented(**rc.UCI2M_ITERATIVE))
+    k1 = phi_fused.launches - before
+    cg_iterations = model.cg_iterations
+    peak = torch.cuda.max_memory_allocated()
+    held = torch.cuda.memory_allocated() - mem_before
+    dev_total, items = device_items(prof, top=40)
+    gap = abs(ll_iter - ll_closed) / abs(ll_closed)
+    # Other probes, the prep reused: the solver alone, and the gap's spread.
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof1:
+        ll_iter1, wall1 = timed(
+            lambda: model.log_likelihood_iterative_segmented(generator=gen, **rc.UCI2M_ITERATIVE))
+    dev1, items1 = device_items(prof1, top=40)
+    gap1 = abs(ll_iter1 - ll_closed) / abs(ll_closed)
+    Phi, w, sigma2, U, lam = model._iter_prep
+    defect = check_whitening(U, lam, sigma2)
+    _, white, _ = lowrank_sqrt_ops(U, lam, sigma2, layout="bm")
+    vv = torch.randn((1 + rc.UCI2M_ITERATIVE["probe_chunk"], Phi.shape[0]), device=DEVICE,
+                     generator=torch.Generator(device=DEVICE).manual_seed(2))
+    with torch.no_grad():
+        apply_ms = device_ms(lambda: ((vv @ Phi) * w[None, :]) @ Phi.T + sigma2 * vv)
+        white_ms = device_ms(lambda: white(vv))
+    emit({"phase": "uci2m_iterative", "n": int(Phi.shape[0]), "p": int(Phi.shape[1]), **rc.UCI2M_ITERATIVE,
+          "nlml_closed": ll_closed, "nlml_slq_cg": ll_iter, "slq_cg_nlml_gap": gap, "gap_tol": UCI2M_GAP_MAX,
+          "jax_gap": UCI2M_JAX_GAP, "nlml_slq_cg_seed1": ll_iter1, "slq_cg_nlml_gap_seed1": gap1,
+          "cg_iterations": cg_iterations, "k1_launches": k1, "wall_ms": wall * 1e3, "device_ms": dev_total,
+          "idle_share": 1 - dev_total / (wall * 1e3), "device_by_kind_ms": kernel_groups(items),
+          "device_items": items[:12], "wall_ms_prep_reused": wall1 * 1e3, "device_ms_prep_reused": dev1,
+          "idle_share_prep_reused": 1 - dev1 / (wall1 * 1e3), "device_by_kind_ms_prep_reused": kernel_groups(items1),
+          "apply_device_ms": apply_ms, "whitening_device_ms": white_ms, "whitening_defect": defect,
+          "peak_gb": peak / 1e9, "held_after_gb": held / 1e9, "card": card})
+    check(np.isfinite(ll_iter) and np.isfinite(ll_iter1), "uci2m iterative NLML is not finite")
+    check(k1 >= -(-int(Phi.shape[0]) // model.stats_chunk), f"uci2m's iterative Φ launched K1 {k1} times")
+    check(gap <= UCI2M_GAP_MAX and gap1 <= UCI2M_GAP_MAX,
+          f"uci2m SLQ+CG NLML off the closed form by {gap:.3e} / {gap1:.3e} (limit {UCI2M_GAP_MAX})")
+
+
+# ---------------------------------------------------------------------------
+# The small BASELINE configurations through the port's runner.
+# ---------------------------------------------------------------------------
+
+# A fresh float64 run of each through the JAX package on the CPU (jax 0.9.0,
+# commit f0da5fd):
+#     JAX_PLATFORMS=cpu python tools/configs_reference_jax.py
+JAX_CONFIGS = {
+    "sine1d": {"rmse": 0.01030411766071493, "rmse_exact": 0.00760693452240356,
+               "parity_nlml_gap": 1.3184212832584308e-08, "parity_mean_gap": 1.183568798523993e-10,
+               "nlml_grief": -829.7406218089686, "nlml_exact": -829.0846772587702},
+    "grid3d": {"ll_schur": 5421.57860371499, "ll_cg": 5421.578603714919},
+    "d100": {"ll": -813.2382239884367, "ll_opt": -560.4245389983322},
+}
+# Relative limits against JAX_CONFIGS, float64 on both sides.  Closed forms
+# and the d100 reweighting (a smooth Adam path on fixed statistics) differ
+# by rounding only (≤ 3.4e-15 through both packages on the CPU).  sine1d's
+# two L-BFGS runs stop where their line searches (the port's strong-Wolfe,
+# optax's) reach the gradient tolerance: the trained NLMLs agree to ~3e-12
+# on the CPU, the test rmse, which moves with the parameters, to ~1e-6.
+CONFIG_RTOL = {"ll_schur": 1e-9, "ll_cg": 1e-9, "ll": 1e-9, "ll_opt": 1e-9, "nlml_grief": 1e-9,
+               "nlml_exact": 1e-9, "rmse": 1e-4, "rmse_exact": 1e-4}
+# sine1d's exact-GP parity (GP-GRIEF with the full basis on grid data
+# against GPRegression), absolute: the predictive means agree to ~1e-10.
+# The NLMLs differ by the GRIEF model's own 1.3e-8 (the JAX package gives
+# JAX_CONFIGS' value too: its dim_noise_var jitter on a 100-point grid), so
+# that gap is held to 1.5 times the JAX package's.
+SINE1D_PARITY_MAX = {"parity_nlml_gap": 2e-8, "parity_mean_gap": 1e-8}
+
+
+def phase_configs(card: str) -> None:
+    """sine1d, grid3d and d100 through ``gp_grief_tpu_torch.run_configs`` on
+    the card in float64, held to JAX_CONFIGS; d100 must launch K1."""
+    from gp_grief_tpu_torch.ops.cuda import kron_matvec_fused, kron_matvec_slab, phi_fused
+
+    kernels = {"K1": phi_fused, "K2": kron_matvec_slab, "K3": kron_matvec_fused}
+    for name, ref in JAX_CONFIGS.items():
+        before = {k: fn.launches for k, fn in kernels.items()}
+        out, wall = timed(lambda: rc.ALL[name](device=DEVICE))
+        launched = {k: fn.launches - before[k] for k, fn in kernels.items()}
+        errs = {k: abs(out[k] - v) / abs(v) for k, v in ref.items() if k in CONFIG_RTOL}
+        emit({"phase": "configs", "config": name, "dtype": "float64", "line": json.loads(rc.line(name, out)),
+              **{k: out[k] for k in ref}, "jax": ref, "rel_err_vs_jax": errs,
+              "rtol": {k: CONFIG_RTOL[k] for k in errs}, "launches": launched, "s": wall, "card": card})
+        for k, err in errs.items():
+            check(err <= CONFIG_RTOL[k], f"{name} {k}: {out[k]} vs JAX {ref[k]} (rel {err:.3e})")
+        if name == "sine1d":
+            for k, limit in SINE1D_PARITY_MAX.items():
+                check(out[k] <= limit, f"sine1d {k} {out[k]:.3e} > {limit}")
+        if name == "d100":
+            check(out["pred_finite"], "d100: non-finite predictions")
+            check(launched["K1"] > 0, "d100 never launched K1")
 
 
 # ---------------------------------------------------------------------------
@@ -1275,17 +1389,20 @@ def main() -> int:
             fn.launches = 0
 
     entries = []
-    # Phases 4-5: the GP-GRIEF path.  Count launches over exactly these runs.
+    # Phases 4-5 and the configs phase: the GP-GRIEF path (and sine1d's exact
+    # GP, grid3d's grid GP).  Count K1's launches over exactly these runs.
     reset()
     phase_kin40k(card)
     phase_uci2m(card)
+    phase_configs(card)
     check(phi_fused.launches > 0, "the GP-GRIEF path never launched K1")
     entries.append(
         {"name": "phi_fused", "route": "cuda", "source": "gp_grief_tpu_torch/csrc/phi_fused.cu",
          "replaces": "gp_grief_tpu/ops/pallas/phi_pallas.py:93", "launches": phi_fused.launches,
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "device_ms": k1["device_ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None,
-         "uci2m_chunk_ms": k1["uci2m_chunk_ms"], "uci2m_chunk_device_ms": k1["uci2m_chunk_device_ms"]})
+         "uci2m_chunk_ms": k1["uci2m_chunk_ms"], "uci2m_chunk_device_ms": k1["uci2m_chunk_device_ms"],
+         "d100_ms": k1["d100_ms"], "d100_device_ms": k1["d100_device_ms"]})
 
     # Phase 7: the grid GP path.
     reset()

@@ -1,10 +1,13 @@
 """gp_grief_tpu_torch — the PyTorch/CUDA port of gp_grief_tpu.
 
-Three paths so far:
+Four paths so far:
 
-* the closed-form GP-GRIEF model: ``InducingGrid`` → per-dimension Gram
-  matrices and ``eigh`` → log-space top-p Kronecker eigenvalue selection → Φ
-  assembly (kernel K1) → ΦᵀΦ / Φᵀy → O(p³) NLML → ``optimize`` → ``predict``;
+* the GP-GRIEF model: ``InducingGrid`` → per-dimension Gram matrices and
+  ``eigh`` → log-space top-p Kronecker eigenvalue selection → Φ assembly
+  (kernel K1) → ΦᵀΦ / Φᵀy → O(p³) NLML → ``optimize`` → ``predict``; and its
+  iterative NLML, CG + SLQ on the n×n operator through one fused host driver
+  (``ops.fused``);
+* the exact GP ``GPRegression`` by Cholesky (the parity oracle);
 * the exact grid GP ``GPKroneckerRegression``: Schur (eigen) or CG solves of
   ``⊗K_d + σ²I``, the CG matvec on kernels K2/K3, deflation preconditioning,
   mixed-precision refinement, chunked predict;
@@ -40,9 +43,10 @@ from gp_grief_tpu_torch.grid import InducingGrid
 from gp_grief_tpu_torch.kernels.stationary import make_kernel
 from gp_grief_tpu_torch.models.gp_grief import GPGriefModel
 from gp_grief_tpu_torch.models.gp_kron import GPKroneckerRegression
+from gp_grief_tpu_torch.models.gp_regression import GPRegression
 from gp_grief_tpu_torch.models.gp_ski import GPSKIRegression
 
 __all__ = [
-    "InducingGrid", "make_kernel", "GPGriefModel", "GPKroneckerRegression", "GPSKIRegression",
+    "InducingGrid", "make_kernel", "GPGriefModel", "GPKroneckerRegression", "GPRegression", "GPSKIRegression",
     "convert", "kernels", "models", "ops", "optimize",
 ]

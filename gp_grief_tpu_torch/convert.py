@@ -3,7 +3,8 @@
 The JAX package's parameters are a pytree whose leaves have dotted names
 (``kernels.0.log_lengthscale``, …, ``log_noise``, ``log_w`` for GP-GRIEF;
 the same without ``log_w`` for ``GPKroneckerRegression`` and
-``GPSKIRegression``); the port's
+``GPSKIRegression``; ``kernel.log_lengthscale`` or
+``kernel.0.log_lengthscale``, …, ``log_noise`` for ``GPRegression``); the port's
 ``state_dict()`` uses the same names.  These helpers take plain NumPy arrays,
 so this module needs no JAX.
 """
@@ -20,15 +21,15 @@ from gp_grief_tpu_torch.kernels.grief import GriefBasis
 
 __all__ = ["params_from_jax", "basis_from_jax"]
 
-_LEAF = re.compile(r"^(kernels\.\d+\.(log_lengthscale|log_variance)|log_noise|log_w)$")
+_LEAF = re.compile(r"^((kernels\.\d+|kernel(\.\d+)?)\.(log_lengthscale|log_variance)|log_noise|log_w)$")
 
 
 def params_from_jax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """A ``state_dict`` for the port from the JAX leaves keyed by dotted name
     (``dict(zip(model._param_leaf_names(), leaves))`` on the JAX side);
     ``load_state_dict`` casts it to the model's dtype and device.  Takes the
-    leaves of ``GPGriefModel``, ``GPKroneckerRegression`` and
-    ``GPSKIRegression``; raises on any other name."""
+    leaves of ``GPGriefModel``, ``GPRegression``, ``GPKroneckerRegression``
+    and ``GPSKIRegression``; raises on any other name."""
     out = {}
     for name, value in flat.items():
         if not _LEAF.match(name):

@@ -1,5 +1,6 @@
-"""Models: the closed-form ``GPGriefModel``, the grid GP ``GPKroneckerRegression`` and SKI's
-``GPSKIRegression`` (its log-likelihood and predict)."""
+"""Models: ``GPGriefModel`` (closed form and the iterative NLML), the exact GP
+``GPRegression`` (its Cholesky path), the grid GP ``GPKroneckerRegression`` and
+SKI's ``GPSKIRegression`` (its log-likelihood and predict)."""
 
 from gp_grief_tpu_torch.models.base import (
     BaseModel,
@@ -12,10 +13,11 @@ from gp_grief_tpu_torch.models.base import (
 )
 from gp_grief_tpu_torch.models.gp_grief import GPGriefModel, init_grief_state
 from gp_grief_tpu_torch.models.gp_kron import GPKroneckerRegression
+from gp_grief_tpu_torch.models.gp_regression import GPRegression
 from gp_grief_tpu_torch.models.gp_ski import GPSKIRegression
 
 __all__ = [
     "BaseModel", "BasisStats", "basis_nlml", "basis_posterior", "basis_stats_from_phi",
     "check_xy", "resolve_device", "GPGriefModel", "init_grief_state", "GPKroneckerRegression",
-    "GPSKIRegression",
+    "GPRegression", "GPSKIRegression",
 ]

@@ -1,6 +1,7 @@
 """GP-GRIEF model: O(n·p + p³) exact inference with grid eigenfunctions.
 
-Counterpart of ``gp_grief_tpu.models.gp_grief`` (closed-form surface).  The
+Counterpart of ``gp_grief_tpu.models.gp_grief``: the closed form, and the
+iterative NLML (CG + SLQ on the n×n operator, deflated and whitened).  The
 kernel is ``k(x,z) = Σ_j w_j φ_j(x) φ_j(z)`` with the GRIEF basis
 (``kernels/grief.py``); NLML and prediction use the inversion and determinant
 lemmas (``models/base.py``), so after the O(n·p²) reductions each NLML
@@ -22,6 +23,7 @@ grid and cached statistics are plain tensors there, not buffers, so
 from __future__ import annotations
 
 import copy
+import math
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -40,6 +42,8 @@ from gp_grief_tpu_torch.models.base import (
     check_xy,
     resolve_device,
 )
+from gp_grief_tpu_torch.ops.fused import fused_cg_slq
+from gp_grief_tpu_torch.ops.precond import check_whitening, lowrank_spectral_factor, lowrank_sqrt_ops
 
 __all__ = ["GPGriefModel", "init_grief_state"]
 
@@ -231,6 +235,132 @@ class GPGriefModel(BaseModel):
             vv = v[:, None] if v.ndim == 1 else v
             out = Phi @ (w[:, None] * (Phi.T @ vv)) + sigma2 * vv
         return out[:, 0] if v.ndim == 1 else out
+
+    # -- iterative NLML ----------------------------------------------------
+
+    def _iterative_prep(self, r: int):
+        """``(Φ, w, σ², U, λ_r)`` for the iterative NLML, cached on the model
+        under ``(r, parameter values)``: Φ assembled over row chunks of
+        ``stats_chunk`` into one ``(n, p)`` tensor (K1 on the card, where it
+        applies), and with ``r > 0`` the top-r spectral factor of ``ΦWΦᵀ``
+        (``U`` orthonormal ``(n, r)``, ``λ_r`` clamped at the dtype's tiny),
+        checked to whiten (:func:`ops.precond.check_whitening`): the
+        driver's identity preconditioner is right only on a whitened
+        operator."""
+        key = (r, self.parameters.tobytes())
+        if getattr(self, "_iter_prep_key", None) != key:
+            # Drop the old prep before building the new one: at n = 1.9M, Φ
+            # and U are 3 and 2.3 GB in float32.
+            self._iter_prep_key = self._iter_prep = None
+            self._ensure_cache()
+            with torch.no_grad():
+                n = self.x.shape[0]
+                Phi = torch.empty((n, self.n_eigs), dtype=self.x.dtype, device=self.x.device)
+                for s in range(0, n, self.stats_chunk):
+                    Phi[s : s + self.stats_chunk] = phi(self._basis, self.kernels, self.xg,
+                                                        self.x[s : s + self.stats_chunk], dims=self.dims,
+                                                        impl=self.phi_impl)
+                w = torch.exp(self.log_w.detach())
+                sigma2 = torch.exp(self.log_noise.detach())
+                U = lam_r = None
+                if r > 0:
+                    # The weights= hook, not Φ·√w: CholeskyQR2 orthonormalizes
+                    # Φ first, so its Cholesky sees κ(Φ)² only; baking w in
+                    # brings back the w₁/w_r conditioning (the JAX package's
+                    # measurement at uci2m).
+                    U, lam_r = lowrank_spectral_factor(Phi, weights=w, top_r=r)
+                    lam_r = torch.clamp_min(lam_r, torch.finfo(lam_r.dtype).tiny)
+                    check_whitening(U, lam_r, sigma2)
+            self._iter_prep = (Phi, w, sigma2, U, lam_r)
+            self._iter_prep_key = key
+        return self._iter_prep
+
+    def log_likelihood_iterative(
+        self,
+        *,
+        generator: Optional[torch.Generator] = None,
+        num_probes: int = 32,
+        lanczos_iters: int = 64,
+        cg_tol: float = 1e-8,
+        cg_iters: int = 1000,
+        precond_rank: int = 0,
+    ) -> float:
+        """Log marginal likelihood by CG (the quadratic term) and SLQ (the
+        log-det) on the ``n×n`` operator ``ΦWΦᵀ + σ²I``, applied in O(n·p).
+
+        The closed-form :meth:`log_likelihood` is exact; this is the large-n
+        estimator of the reference.  It is
+        :meth:`log_likelihood_iterative_segmented` with all probes in one
+        chunk.  ``generator`` draws the probes (None: a generator seeded 0
+        on the model's device).  Value only."""
+        return self.log_likelihood_iterative_segmented(
+            generator=generator, num_probes=num_probes, lanczos_iters=lanczos_iters, cg_tol=cg_tol,
+            cg_iters=cg_iters, precond_rank=precond_rank, probe_chunk=num_probes,
+        )
+
+    def log_likelihood_iterative_segmented(
+        self,
+        *,
+        generator: Optional[torch.Generator] = None,
+        num_probes: int = 32,
+        lanczos_iters: int = 64,
+        cg_tol: float = 1e-8,
+        cg_iters: int = 1000,
+        precond_rank: int = 0,
+        cg_segment_iters: int = 50,
+        probe_chunk: int = 8,
+        fuse_probes: bool = True,
+        verbose: bool = False,
+    ) -> float:
+        """Log marginal likelihood by CG + SLQ through the host driver
+        :func:`ops.fused.fused_cg_slq`: probe chunks of ``probe_chunk``
+        probes, each ``lanczos_iters`` Lanczos steps (with ``fuse_probes``
+        advancing the CG solve through the same applies), then CG segments of
+        ``cg_segment_iters`` iterations to ``cg_tol`` within ``cg_iters``.
+
+        The operator ``v ↦ (vΦ)·w·Φᵀ + σ²v`` runs its two GEMMs in full
+        float32 (TF32 off): a reduced-precision operator makes preconditioned
+        float32 CG diverge within two iterations at a trained optimum (the
+        JAX package's measurement at uci2m).  ``precond_rank = r > 0``
+        deflates the top-r eigenpairs of ``ΦWΦᵀ``: CG and SLQ run on the
+        whitened operator ``M^{-1/2} Ã M^{-1/2}``, never as data-space PCG,
+        and ``log|Ã| = log|M| + log|M^{-1/2} Ã M^{-1/2}|``; the factor is
+        checked to whiten (:func:`ops.precond.check_whitening`) when it is
+        built.  ``cg_iterations`` holds the CG iterations the driver
+        dispatched.
+
+        Φ (and U) are built once and cached on the model for the current
+        parameter values.  ``generator`` draws the probes (None: a generator
+        seeded 0 on the model's device); chunks draw in order.  Value only.
+        """
+        n = self.x.shape[0]
+        r = int(min(precond_rank, self.n_eigs))
+        Phi, w, sigma2, U, lam_r = self._iterative_prep(r)
+        if generator is None:
+            generator = torch.Generator(device=self.x.device).manual_seed(0)
+
+        def mv(vv):
+            return ((vv @ Phi) * w[None, :]) @ Phi.T + sigma2 * vv
+
+        with torch.no_grad():
+            y = self.y[None, :]
+            if r > 0:
+                _, M_inv_sqrt, logdet_M = lowrank_sqrt_ops(U, lam_r, sigma2, layout="bm")
+
+                def op(vv):
+                    return M_inv_sqrt(mv(M_inv_sqrt(vv)))
+
+                rhs, ld_off = M_inv_sqrt(y), float(logdet_M)
+            else:
+                op, rhs, ld_off = mv, y, 0.0
+            x, ld, iters = fused_cg_slq(
+                op, rhs, generator=generator, num_probes=num_probes, lanczos_iters=lanczos_iters,
+                probe_chunk=probe_chunk, cg_tol=cg_tol, cg_iters=cg_iters, cg_segment_iters=cg_segment_iters,
+                fuse_probes=fuse_probes, verbose=verbose,
+            )
+            quad = float(torch.sum(rhs * x))
+        self.cg_iterations = iters
+        return -0.5 * (quad + ld_off + ld + n * math.log(2.0 * math.pi))
 
     # -- prediction ----------------------------------------------------------
 

@@ -1,12 +1,14 @@
 """Lanczos tridiagonalization and stochastic Lanczos quadrature (SLQ) log-det.
 
 Counterpart of ``gp_grief_tpu.ops.lanczos`` (``lanczos``,
-``lanczos_batched``, ``_slq_quadrature``, ``slq_logdet``).  The recurrences
-are Python loops of a fixed length with the JAX package's masked arithmetic
-(breakdown freezes a recurrence without a host branch), so nothing reads the
-device until the quadrature's result.  The probe-chunked and
-iteration-segmented loops of the JAX package exist for a TPU runtime's
-per-program time limit and have no counterpart here.
+``lanczos_batched``, ``_slq_quadrature``, ``slq_logdet``, and the host
+float64 quadrature of probe chunks: ``_probe_chunk_sizes``,
+``_chunk_quadrature_total``, ``_np_slq_quadrature``, which the fused CG +
+SLQ driver of ``ops/fused.py`` runs).  The recurrences are Python loops of a
+fixed length with the JAX package's masked arithmetic (breakdown freezes a
+recurrence without a host branch), so nothing reads the device until the
+quadrature's result.  The iteration-segmented loops of the JAX package exist
+for a TPU runtime's per-program time limit and have no counterpart here.
 
 Probes are Rademacher vectors drawn by :func:`rademacher`, the one draw
 function of the package, from an explicit ``torch.Generator``.  ``jax.random``
@@ -18,6 +20,7 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from gp_grief_tpu_torch.ops.cg import _reducers
@@ -183,3 +186,41 @@ def slq_logdet(
     alphas, betas, num_valid = lanczos_batched(matvec, Z, k, layout=layout)
     znorm2 = torch.sum(Z * Z, dim=0 if layout == "col" else 1)
     return torch.mean(znorm2 * _slq_quadrature(alphas.T, betas.T, num_valid, k))
+
+
+def _probe_chunk_sizes(num_probes: int, probe_chunk: int) -> list:
+    """Partition ``num_probes`` probes into chunks of ``probe_chunk`` (the
+    last one ragged)."""
+    probe_chunk = max(1, min(int(probe_chunk), int(num_probes)))
+    sizes = [probe_chunk] * (int(num_probes) // probe_chunk)
+    if int(num_probes) % probe_chunk:
+        sizes.append(int(num_probes) % probe_chunk)
+    return sizes
+
+
+def _chunk_quadrature_total(a_rows, b_rows, alive_rows, znorm2, k: int) -> float:
+    """Host float64 SLQ quadrature of one probe chunk, ``Σ_r ‖z_r‖² Σ_j τ_j²
+    log θ_j``, from the per-step Lanczos outputs fetched in blocks (each
+    ``(steps, R)``; ``b_rows`` carries every step's β, the last dropped
+    here)."""
+    alphas = np.concatenate(a_rows).astype(np.float64)
+    betas = np.concatenate(b_rows).astype(np.float64)
+    alive = np.concatenate(alive_rows)
+    num_valid = alive.sum(axis=0)
+    zn = np.asarray(znorm2, dtype=np.float64)
+    total = 0.0
+    for j in range(zn.shape[0]):
+        total += zn[j] * _np_slq_quadrature(alphas[:, j], betas[: k - 1, j], int(num_valid[j]), k)
+    return total
+
+
+def _np_slq_quadrature(alpha_col, beta_col, num_valid, k) -> float:
+    """Host float64 :func:`_slq_quadrature` of one probe's tridiagonal."""
+    T = np.diag(alpha_col) + np.diag(beta_col, 1) + np.diag(beta_col, -1)
+    live = np.arange(k) < num_valid
+    T = np.where(live[:, None] & live[None, :], T, 0.0)
+    T = T + np.diag(np.where(live, 0.0, 1.0))
+    theta, V = np.linalg.eigh(T)
+    tau = V[0, :]
+    theta_safe = np.where(theta > 0, theta, 1.0)
+    return float(np.sum(tau * tau * np.log(theta_safe)))

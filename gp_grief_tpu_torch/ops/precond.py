@@ -12,7 +12,9 @@ applied with two Kronecker matvecs (``⊗Q_dᵀ`` then ``⊗Q_d``, both through
 and a p-entry gather/scatter on the eigen-lattice; ``Q_p`` is never formed.
 The low-rank preconditioner of SKI's data-space solver (an explicit skinny
 basis ``U``; :func:`lowrank_spectral_factor`, :func:`lowrank_sqrt_ops`) is
-here too; the pivoted-Cholesky one comes with the matrix-free exact GP.
+here too, with :func:`check_whitening`, which holds its ``M^{-1/2}`` to
+being SPD before a solver treats ``M^{-1/2} A M^{-1/2}`` as whitened; the
+pivoted-Cholesky one comes with the matrix-free exact GP.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from gp_grief_tpu_torch.ops.kron_fast import kron_matvec_fast
 from gp_grief_tpu_torch.ops.solve import solve_chol, stable_cholesky
 
 __all__ = [
-    "kron_deflation_preconditioner", "kron_deflation_sqrt_ops", "lowrank_preconditioner",
+    "check_whitening", "kron_deflation_preconditioner", "kron_deflation_sqrt_ops", "lowrank_preconditioner",
     "lowrank_spectral_factor", "lowrank_sqrt_ops", "lowrank_sqrt_ops_from_factor",
 ]
 
@@ -114,6 +116,32 @@ def lowrank_sqrt_ops(U: torch.Tensor, lam: torch.Tensor, sigma2, *, layout: str 
     n = U.shape[0]
     logdet_M = torch.sum(torch.log(lam_shift)) + (n - lam.shape[0]) * torch.log(sigma2)
     return _apply(lambda s: 1.0 / s), _apply(lambda s: 1.0 / torch.sqrt(s)), logdet_M
+
+
+def check_whitening(U: torch.Tensor, lam: torch.Tensor, sigma2, *, chunk: int = 131072) -> float:
+    """Raise unless :func:`lowrank_sqrt_ops`'s ``M^{-1/2}`` for ``U (n, r)``,
+    ``lam`` (ascending, positive) and ``σ²`` is SPD as computed.
+
+    That operator is ``b·I + U diag(d) Uᵀ`` with ``b = σ⁻¹`` and ``d_i =
+    (λ_i + σ²)^{-1/2} − b < 0``, which is SPD for an orthonormal ``U``.  With
+    ``UᵀU = I + E``, its least eigenvalue is at least ``c(1 + ‖E‖₂) − b‖E‖₂``,
+    ``c = (λ_max + σ²)^{-1/2}``, so it stays SPD while ``‖E‖₂ < c / (b − c)``.
+    ``E`` is formed in float64 over row chunks of ``chunk``.  Returns
+    ``‖E‖₂``."""
+    r = U.shape[1]
+    G = torch.zeros((r, r), dtype=torch.float64, device=U.device)
+    for s in range(0, U.shape[0], chunk):
+        Uk = U[s : s + chunk].double()
+        G += Uk.T @ Uk
+    defect = float(torch.linalg.matrix_norm(G - torch.eye(r, dtype=G.dtype, device=G.device), ord=2))
+    s2 = float(sigma2)
+    b, c = s2**-0.5, (float(lam[-1]) + s2) ** -0.5
+    if not defect < c / (b - c):
+        raise RuntimeError(
+            f"the deflation factor is not orthonormal enough to whiten: ||U^T U - I||_2 = {defect:.3e}, "
+            f"M^(-1/2) stays SPD only below {c / (b - c):.3e} (lam_max {float(lam[-1]):.3e}, sigma2 {s2:.3e})"
+        )
+    return defect
 
 
 def lowrank_preconditioner(U: torch.Tensor, lam: torch.Tensor, sigma2) -> Callable[[torch.Tensor], torch.Tensor]:

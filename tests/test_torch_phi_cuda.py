@@ -4,7 +4,7 @@ Marked ``cuda``; without a CUDA device every test skips.  On a GPU machine
 without jax run ``python -m pytest --noconftest tests/test_torch_phi_cuda.py``
 (``tests/conftest.py`` imports jax; this file does not).  The shapes are the
 ones the main path hands K1 (kin40k statistics and predict, one uci2m
-statistics chunk) and ragged ones that fit no tile.
+statistics chunk, d100's Φ) and ragged ones that fit no tile.
 """
 
 import numpy as np
@@ -23,6 +23,7 @@ SHAPES = [  # (d, n, m, p)
     (8, 30000, 16, 400),
     (8, 10000, 16, 400),
     (10, 131072, 10, 400),
+    (100, 1000, 10, 300),  # d100: 100 stages, p not a multiple of the 80-wide tile
     (5, 4099, 37, 211),
     (2, 1, 1, 1),
     (3, 65, 17, 65),
