@@ -59,10 +59,28 @@ non-zero without printing the final line:
              as a user calls it, profiled (wall, device time, idle share,
              launches); plan build times; LOVE on ski100k_data.
 
+10. kron_axes — K6-K8 against their plain versions at the 32⁵ shapes, and K7
+             as the operator of a float32 CG solve at grid32x5_mixed.
+11. grid_train — both grid configurations trained through CG: the float32
+             NLML gradient (the CG implicit gradient) against the float64
+             gradient with the Schur solve, then 5 Adam steps twice from the
+             same start (the runs bit-identical, the NLML lower), per step
+             wall, device time, idle share, peak memory and K2/K3 launches.
+12. ski_train — each SKI configuration: its float64 NLML gradient at
+             tools/ski_train_reference_f64.json's size and probes against the
+             JAX package's; then ``optimize_segmented`` at full size in
+             float32, twice from the same start per variant (ski1m_lattice
+             with float32 and with bf16 step solves, ski100k_data with the data
+             solver, K4 as W's adjoint), the runs bit-identical and the NLML
+             lower, per step solve and gradient wall, device time, idle share,
+             peak memory, CG iterations and launches; ski1m_lattice's
+             ``log_likelihood_segmented`` against ``log_likelihood``.
+
 Then the ``nvidia-smi`` name/power-limit line, one ``{"kernels": [...]}``
 line (K1 launches from phases 4-5 and configs, K2/K3 from phase 7, K4/K5 from
-phase 9's float32 runs, K6-K8 from phase 10) and, last, ``{"ok": true,
-"device": {...}}``.  This script imports no JAX.
+phase 9's float32 runs, K6-K8 from phase 10; ``training_launches`` from
+phases 11-12) and, last, ``{"ok": true, "device": {...}}``.  This script
+imports no JAX.
 """
 
 from __future__ import annotations
@@ -412,12 +430,14 @@ def phase_uci2m(card: str) -> None:
 
 
 def kernel_groups(items) -> dict:
-    """A profile's device time by kind of kernel (ms): K1, GEMMs, reductions,
-    elementwise updates, the rest."""
+    """A profile's device time by kind of kernel (ms): K1, the Kronecker
+    members (K2/K3/K6-K8), K4, K5, GEMMs, reductions, elementwise updates,
+    the rest."""
     groups = {}
     for it in items:
         name = it["name"].lower()
-        kind = ("K1" if "phi_fused" in name else "gemm" if any(k in name for k in ("gemm", "xmma", "cutlass"))
+        kind = ("K1" if "phi_fused" in name else "kron_pass" if "kron_" in name else "K4" if "interp_wt" in name
+                else "K5" if "wtw_" in name else "gemm" if any(k in name for k in ("gemm", "xmma", "cutlass"))
                 else "reduce" if "reduce" in name else "elementwise" if "elementwise" in name else "other")
         groups[kind] = groups.get(kind, 0.0) + it["ms"]
     return groups
@@ -1347,6 +1367,294 @@ def phase_kron_axes_path(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Training through the iterative solvers: the grid model's CG implicit
+# gradient and SKI's BBMM surrogates.
+# ---------------------------------------------------------------------------
+
+# 5 Adam steps of each grid configuration, as a user calls them.
+GRID_TRAIN = dict(optimizer="adam", max_iters=5, learning_rate=0.05)
+# The float32 NLML gradient through the CG implicit gradient against the same
+# model's float64 schur gradient on the card, max abs difference relative to
+# the largest component.  About three times the measured gap (PERF.md §6,
+# PR 9).
+# Measured 9.59e-8 and 1.56e-5 on an H100 (chip_smoke's first run, PR 9).
+GRID_GRAD_RTOL = {"grid32x5_mixed": 3e-7, "grid8x512x512_exact": 5e-5}
+# benchmarks/exp_r11_train_mixed.py's recipe at ski1m_lattice (its step
+# solves in float32, then in bf16 from the same start); 5 steps at
+# ski100k_data.
+SKI_TRAIN = {"ski1m_lattice": dict(max_iters=8, learning_rate=0.05, num_probes=8),
+             "ski100k_data": dict(max_iters=5, learning_rate=0.05, num_probes=8)}
+# The float64 NLML gradient on the card against the JAX package's float64
+# CPU run at tools/ski_reference_f64.json's sizes, same probes, cg_tol 1e-10:
+# rounding only (the CPU tests measure ≤ 3.8e-12 at n = 400).
+SKI_TRAIN_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                                   "ski_train_reference_f64.json")
+SKI_GRAD_F64_RTOL = 1e-8
+# log_likelihood_segmented (probe chunks of 4) against log_likelihood at
+# ski1m_lattice, relative: other probes, so the SLQ sampling error of 8
+# probes.  About three times the measured gap, 2.03e-6 on an H100 (PERF.md
+# §6, PR 9); the probes are seeded, so the gap is the same on every run.
+SKI_SEGMENTED_RTOL = 6e-6
+
+
+class StepStats:
+    """Per-step figures of a training run, fed by the training loop's
+    callback: host wall between the ends of consecutive steps (each read after
+    a synchronize), peak device memory and kernel launches of each step; with
+    ``profiled``, one ``torch.profiler`` run over all steps, whose kernels
+    are given to the step in whose window they start (a marker is recorded
+    at each step's end): device time and idle share per step."""
+
+    MARK = "chip_smoke.step_end"
+
+    def __init__(self, kernels: dict, profiled: bool):
+        self.kernels, self.profiled, self.rows = kernels, profiled, []
+
+    def _counts(self):
+        return {k: fn.launches for k, fn in self.kernels.items()}
+
+    def __enter__(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        self.prof = None
+        if self.profiled:
+            self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self.prof.__enter__()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.before, self.t = self._counts(), time.perf_counter()
+        return self
+
+    def step(self, **extra):
+        import torch
+
+        torch.cuda.synchronize()
+        now, counts = time.perf_counter(), self._counts()
+        if self.prof is not None:
+            with torch.profiler.record_function(self.MARK):
+                pass
+        self.rows.append({"wall_ms": (now - self.t) * 1e3, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                          "launches": {k: counts[k] - self.before[k] for k in counts}, **extra})
+        torch.cuda.reset_peak_memory_stats()
+        self.before, self.t = counts, time.perf_counter()
+
+    def __exit__(self, *exc):
+        if self.prof is None:
+            return False
+        self.prof.__exit__(*exc)
+        events = self.prof.events()
+        marks = sorted(e.time_range.start for e in events if e.name == self.MARK)
+        dev = [0.0] * len(self.rows)
+        for e in events:
+            if not str(e.device_type).endswith("CUDA"):
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            us = e.self_cuda_time_total if us is None else us
+            i = int(np.searchsorted(marks, e.time_range.start))
+            if i < len(dev):
+                dev[i] += us / 1e3
+        for row, d in zip(self.rows, dev):
+            row.update(device_ms=d, idle_share=1 - d / row["wall_ms"])
+        self.device_total_ms, items = device_items(self.prof, top=60)
+        self.device_by_kind_ms = kernel_groups(items)
+        return False
+
+
+def merged_steps(plain: list, profiled: list) -> list:
+    """One row per step: the unprofiled run's figures, with the profiled
+    run's wall, device time and idle share beside them."""
+    return [dict(u, wall_ms_profiled=r["wall_ms"], device_ms=r["device_ms"], idle_share=r["idle_share"])
+            for u, r in zip(plain, profiled)]
+
+
+def flat_grad(model, loss_fn):
+    """The model's loss and its gradient, flat in the JAX package's leaf order."""
+    import torch
+
+    model.zero_grad()
+    loss = loss_fn()
+    loss.backward()
+    return float(loss.detach()), torch.cat([p.grad.reshape(-1).double() for _, p in model._leaves()])
+
+
+def same_bits(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def schur_loss_f64(model):
+    """A float64 grid model's NLML, differentiable, with the quadratic form's
+    solve in closed form: ``2yᵀα − αᵀAα`` with ``α = A⁻¹y`` by the Schur
+    solve held fixed, whose gradient ``−αᵀ(dA)α`` is the exact one at ``α``,
+    and ``log|A|`` through the eigenvalues alone.  Differentiating the Schur
+    form itself would run the eigenvectors' derivative, which divides by the
+    factors' eigenvalue gaps (2.5e-12 at grid32x5_mixed; round-off-degenerate
+    at 512 points): it gives NaN there."""
+    import torch
+    from gp_grief_tpu_torch.ops.kron import kron_solve_schur, lam_kron
+    from gp_grief_tpu_torch.ops.kron_fast import kron_matvec_fast
+
+    sigma2 = torch.exp(model.log_noise)
+    factors = model._factors()
+    Qs, lams = model._eig(factors)
+    with torch.no_grad():
+        alpha = kron_solve_schur(Qs, lams, model.y, sigma2)
+    Aalpha = kron_matvec_fast(tuple(K.contiguous() for K in factors), alpha, precision="highest") + sigma2 * alpha
+    quad = 2.0 * torch.dot(model.y, alpha) - torch.dot(alpha, Aalpha)
+    logdet = torch.sum(torch.log(lam_kron(lams) + sigma2))
+    return 0.5 * (quad + logdet + model.m * np.log(2.0 * np.pi))
+
+
+def phase_grid_train(card: str, name: str) -> None:
+    """One grid configuration trained through CG: the float32 NLML gradient
+    (the CG implicit gradient) against the float64 gradient with the Schur
+    solve (:func:`schur_loss_f64`) on the card, then GRID_TRAIN's Adam steps twice from the same start (the second
+    run profiled per step): the same bits both times and a lower NLML."""
+    import torch
+    from gp_grief_tpu_torch.ops.cuda import kron_matvec_fused, kron_matvec_slab
+
+    kernels = {"K2": kron_matvec_slab, "K3": kron_matvec_fused}
+    xg, y = grid_data(name)
+    m64 = grid_model(name, xg, y, torch.float64, DEVICE, solver="schur")
+    (_, g64), t64 = timed(lambda: flat_grad(m64, lambda: schur_loss_f64(m64)))
+    del m64
+    torch.cuda.empty_cache()
+    model = grid_model(name, xg, y, torch.float32, DEVICE)
+    before = {k: fn.launches for k, fn in kernels.items()}
+    torch.cuda.reset_peak_memory_stats()
+    (_, g32), t32 = timed(lambda: flat_grad(model, model._loss))
+    grad_peak = torch.cuda.max_memory_allocated() / 1e9
+    grad_launches = {k: fn.launches - before[k] for k, fn in kernels.items()}
+    gap = float((g32 - g64).abs().max() / g64.abs().max())
+    start = [p.detach().clone() for _, p in model._leaves()]
+    ll0, t_value = timed(model.log_likelihood)  # the forward solve alone
+    runs = []
+    for profiled in (False, True):
+        with torch.no_grad():
+            for (_, p), v in zip(model._leaves(), start):
+                p.copy_(v)
+        with StepStats(kernels, profiled) as stats:
+            res = model.optimize(callback=lambda it, value, gnorm: stats.step(loss=value, grad_norm=gnorm),
+                                 **GRID_TRAIN)
+        runs.append((res, [p.detach().clone() for _, p in model._leaves()], stats))
+    ll1 = model.log_likelihood()
+    (r0, p0, st0), (r1, p1, st1) = runs
+    identical = np.array_equal(r0.losses, r1.losses) and same_bits(p0, p1)
+    emit({"phase": "grid_train", "config": name, "M": int(np.prod(GRID_CONFIGS[name]["sizes"])),
+          **GRID_CONFIGS[name]["model"], **GRID_TRAIN, "grad_f32_cg": g32.tolist(), "grad_f64_schur": g64.tolist(),
+          "grad_gap": gap, "grad_gap_tol": GRID_GRAD_RTOL[name], "grad_launches": grad_launches,
+          "grad_peak_gb": grad_peak, "nlml_before": -ll0, "nlml_after": -ll1, "losses": r0.losses.tolist(),
+          "runs_identical": identical, "cg_iterations_last": model.cg_info.iterations,
+          "steps": merged_steps(st0.rows, st1.rows), "device_ms_profiled_run": st1.device_total_ms,
+          "device_by_kind_ms_profiled_run": st1.device_by_kind_ms,
+          "s": {"grad_f64_schur": t64, "grad_f32_cg": t32, "nlml_f32_cg": t_value, "train_unprofiled": r0.wall_time,
+                "train_profiled": r1.wall_time}, "card": card})
+    check(bool(torch.isfinite(g32).all()), f"{name}: non-finite CG gradient")
+    check(gap <= GRID_GRAD_RTOL[name], f"{name}: f32 CG gradient off the f64 schur gradient by {gap:.3e}")
+    check(identical, f"{name}: two training runs from the same start differ")
+    check(ll1 > ll0, f"{name}: the NLML rose in training ({-ll0} -> {-ll1})")
+    check(sum(grad_launches.values()) > 0, f"{name}: the CG gradient never launched K2/K3")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_ski_grad_f64(name: str) -> dict:
+    """The float64 NLML gradient (BBMM surrogate) of one SKI configuration
+    on the card at the JAX reference's size and probes, against
+    tools/ski_train_reference_f64.json."""
+    import torch
+
+    r = json.load(open(SKI_TRAIN_REFERENCE))[name]
+    f64 = np.float64
+    x, y, xg = ski_data(name, r["n"], r["m"])
+    model = ski_model(name, x.astype(f64), y.astype(f64), [g.astype(f64) for g in xg], torch.float64,
+                      cg_tol=r["cg_tol"])
+    check([k for k, _ in model._leaves()] == r["leaves"], f"{name}: parameter order differs from the reference")
+    from gp_grief_tpu_torch.ops.cuda import interp_wt
+
+    def grad_and_adjoint():
+        model.zero_grad()
+        loss = model._loss()
+        before = interp_wt.launches
+        loss.backward()  # the data solver's W adjoint is K4
+        grad = torch.cat([p.grad.reshape(-1).double() for _, p in model._leaves()])
+        return float(loss.detach()), grad, interp_wt.launches - before
+
+    (nlml, grad, adjoint), t = timed(lambda: with_numpy_probes(grad_and_adjoint))
+    if model.solver == "data":
+        check(adjoint > 0, f"{name}: the float64 gradient's W adjoint never launched K4")
+    want = torch.as_tensor(r["grad"], dtype=torch.float64)
+    err = float((grad.cpu() - want).abs().max() / want.abs().max())
+    nl_err = abs(nlml - r["nlml"]) / abs(r["nlml"])
+    del model
+    torch.cuda.empty_cache()
+    check(err <= SKI_GRAD_F64_RTOL and nl_err <= SKI_GRAD_F64_RTOL,
+          f"{name}: f64 gradient rel err {err:.3e} (NLML {nl_err:.3e}) vs the JAX package")
+    return {"size": {k: r[k] for k in ("n", "m", "cg_tol")}, "grad": grad.tolist(), "jax_grad": r["grad"],
+            "k4_launches_in_backward": adjoint, "grad_rel_err": err, "nlml_rel_err": nl_err, "tol": SKI_GRAD_F64_RTOL, "s": t}
+
+
+def phase_ski_train(card: str, name: str) -> None:
+    """One SKI configuration trained by ``optimize_segmented`` in float32 at
+    full size (SKI_TRAIN), each variant twice from the same start (the second
+    run profiled per step): the same bits both times and a lower NLML
+    (``log_likelihood``, the model's own probes).  ski1m_lattice runs its step
+    solves in float32 and then in bf16 (``train_mixed16``), and its
+    ``log_likelihood_segmented`` against ``log_likelihood``."""
+    import torch
+    from gp_grief_tpu_torch.ops.cuda import interp_wt, kron_matvec_fused, kron_matvec_slab, wtw_stencil
+
+    kernels = {"K2": kron_matvec_slab, "K3": kron_matvec_fused, "K4": interp_wt, "K5": wtw_stencil}
+    f64 = phase_ski_grad_f64(name)
+    x, y, xg = ski_data(name)
+    model = ski_model(name, x, y, xg, torch.float32)
+    lattice = model.solver == "lattice"
+    ll0 = model.log_likelihood()
+    start = [p.detach().clone() for _, p in model._leaves()]
+    out = {"phase": "ski_train", "config": name, "n": SKI_CONFIGS[name]["n"], "M": model.M, **SKI_CONFIGS[name]["model"],
+           **SKI_TRAIN[name], "f64_grad": f64, "nlml_before": -ll0, "variants": {}}
+    for mixed in ((False, True) if lattice else (False,)):
+        model._train_mixed16 = mixed
+        runs = []
+        for profiled in (False, True):
+            with torch.no_grad():
+                for (_, p), v in zip(model._leaves(), start):
+                    p.copy_(v)
+            with StepStats(kernels, profiled) as stats:
+                res = model.optimize_segmented(callback=lambda it, value, info: stats.step(surrogate=value, **info),
+                                               **SKI_TRAIN[name])
+            runs.append((res, [p.detach().clone() for _, p in model._leaves()], stats))
+        (r0, p0, st0), (r1, p1, st1) = runs
+        rows0 = st0.rows
+        ll1 = model.log_likelihood()
+        identical = np.array_equal(r0.losses, r1.losses) and same_bits(p0, p1)
+        out["variants"]["mixed16" if mixed else "float32"] = {
+            "nlml_after": -ll1, "surrogate": r0.losses.tolist(), "runs_identical": identical,
+            "params_after": torch.cat([p.reshape(-1) for p in p0]).tolist(),
+            "steps": merged_steps(rows0, st1.rows), "device_ms_profiled_run": st1.device_total_ms,
+            "device_by_kind_ms_profiled_run": st1.device_by_kind_ms,
+            "s": {"train_unprofiled": r0.wall_time, "train_profiled": r1.wall_time}}
+        check(identical, f"{name} (train_mixed16={mixed}): two training runs from the same start differ")
+        check(ll1 > ll0, f"{name} (train_mixed16={mixed}): the NLML rose in training ({-ll0} -> {-ll1})")
+        check(all(r["launches"]["K4"] > 0 for r in rows0), f"{name}: a training step never launched K4")
+        if lattice:
+            check(all(r["launches"]["K5"] > 0 and r["launches"]["K2"] > 0 for r in rows0),
+                  f"{name}: a training step never launched K5 or K2")
+    if lattice:
+        ll, t_ll = timed(model.log_likelihood)
+        ll_seg, t_seg = timed(lambda: model.log_likelihood_segmented(probe_chunk=4))
+        gap = abs(ll_seg - ll) / abs(ll)
+        out.update(nlml=-ll, nlml_segmented=-ll_seg, segmented_gap=gap, segmented_gap_tol=SKI_SEGMENTED_RTOL,
+                   segmented_cg_iterations=model.cg_iterations, s={"nlml": t_ll, "nlml_segmented": t_seg})
+        check(gap <= SKI_SEGMENTED_RTOL, f"{name}: log_likelihood_segmented off log_likelihood by {gap:.3e}")
+    emit({**out, "card": card})
+    del model
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1453,6 +1761,21 @@ def main() -> int:
                         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                         "bound_by": k["bound_by"], "library_ms": k["library_ms"], "shape": k["shape"],
                         **({"chain_ms": k["chain_ms"]} if "chain_ms" in k else {})})
+
+    # Phases 11-12: training through the iterative solvers (the grid model's CG
+    # implicit gradient, SKI's BBMM surrogates).
+    reset()
+    for name in GRID_CONFIGS:
+        phase_grid_train(card, name)
+    for name in SKI_CONFIGS:
+        phase_ski_train(card, name)
+    check([e["name"] for e in entries] == ["phi_fused", "kron_slab", "kron_fused", "interp_wt", "wtw_stencil",
+                                           "kron_matmat_cuda", "last_slab_pass", "tail3_pass", "tail2_pass"],
+          "the kernels line's entries are out of the counters' order")
+    for entry, fn in zip(entries, counters):
+        entry["training_launches"] = fn.launches
+    for fn in (kron_matvec_slab, kron_matvec_fused, interp_wt, wtw_stencil):
+        check(fn.launches > 0, f"the training phases never launched {fn.__name__}")
 
     print(card, flush=True)
     emit({"kernels": entries})

@@ -11,7 +11,8 @@ plus ``O(M · Σ m_d)`` per matvec.  ``solver="cg"`` computes the quadratic
 term iteratively instead, through ``kron_matvec_fast`` and so through
 kernels K2/K3 on the card: exact CG, mixed-precision refinement
 (``cg_precision="mixed"``/``"mixed16"``), and an optional rank-p Kronecker
-deflation preconditioner (``precond_rank``).
+deflation preconditioner (``precond_rank``).  CG training differentiates
+through the solve by its implicit gradient (``ops.cg``).
 """
 
 from __future__ import annotations
@@ -65,10 +66,12 @@ class GPKroneckerRegression(BaseModel):
     ``y``, else the card (``device="cpu"`` for the CPU; without a CUDA device
     and without ``device`` the constructor raises).
 
-    Not ported yet, each raising: ``mesh=`` (the model-parallel matvec),
-    ``log_likelihood_segmented`` (a host loop for a TPU runtime's per-program
-    time limit), and ``optimize`` with ``solver="cg"`` (needs the CG
-    implicit gradient).
+    ``optimize`` trains either solver; under ``solver="cg"`` the gradient of
+    the quadratic term is the CG implicit gradient (``ops.cg``).
+
+    Not ported yet, each raising: ``mesh=`` (the model-parallel matvec) and
+    ``log_likelihood_segmented`` (a host loop for a TPU runtime's
+    per-program time limit).
     """
 
     def __init__(
@@ -186,12 +189,10 @@ class GPKroneckerRegression(BaseModel):
         return 0.5 * (quad + logdet + self.m * math.log(2.0 * math.pi))
 
     def _cg_quad(self, factors, Qs, lams, sigma2) -> torch.Tensor:
-        """``yᵀ(K + σ²I)⁻¹y`` by CG (value only)."""
-        if torch.is_grad_enabled() and any(p.requires_grad for _, p in self.named_parameters()):
-            raise NotImplementedError(
-                "solver='cg' has no gradient yet (the CG implicit adjoint solve is not ported); "
-                "use solver='schur' to train, or evaluate under torch.no_grad()"
-            )
+        """``yᵀ(K + σ²I)⁻¹y`` by CG.  Differentiable through the solve's
+        implicit gradient (one more solve of the same kind in the backward)
+        and through the whitener ``M^{-1/2}``, as in the JAX package; the
+        data-space preconditioner hook carries no gradient."""
         M_inv = M_inv_sqrt = None
         if self.precond_rank > 0:
             _, idx = top_p_kron_eigs(lams, self.precond_rank)
@@ -233,14 +234,6 @@ class GPKroneckerRegression(BaseModel):
             )
         # quad = yᵀA⁻¹y = (M⁻½y)ᵀ (M⁻½AM⁻½)⁻¹ (M⁻½y) = rhs_w·alpha_w.
         return torch.dot(rhs_w, alpha_w[0])
-
-    def optimize(self, **kwargs):
-        if self.solver == "cg":
-            raise NotImplementedError(
-                "optimize(solver='cg') needs the CG implicit gradient, which is not ported yet; "
-                "train with solver='schur'"
-            )
-        return super().optimize(**kwargs)
 
     def log_likelihood_segmented(self, **kwargs):
         raise NotImplementedError(

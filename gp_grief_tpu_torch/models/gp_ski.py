@@ -1,17 +1,22 @@
 """SKI / KISS-GP regression: scattered data tied to a grid by interpolation.
 
-Counterpart of ``gp_grief_tpu.models.gp_ski.GPSKIRegression``, its serving
-path: the log marginal likelihood and ``predict``, for both solvers.  The
+Counterpart of ``gp_grief_tpu.models.gp_ski.GPSKIRegression``: the log
+marginal likelihood, its training and ``predict``, for both solvers.  The
 kernel is approximated as ``k̂(x, z) = W_x (⊗_d K_d) W_zᵀ`` with sparse linear
 interpolation weights ``W`` (``ops/interp.py``), so every apply of
 ``K̂ + σ²I`` is gather → Kronecker matvec → ``Wᵀ``.  The NLML takes CG for
-the quadratic term and SLQ for the log-determinant.
+the quadratic term and SLQ for the log-determinant; training differentiates
+the BBMM stop-gradient surrogates (the solves and the SLQ value carry no
+gradient, and ``log|Â|``'s gradient is a Hutchinson estimate on the CG probe
+solves).
 
 On the card ``Wᵀ`` is kernel K4 in every regime, the lattice dual's ``WᵀW``
 is kernel K5, and the Kronecker matvecs go through ``kron_matvec_fast``
-(kernels K2/K3 where its gates send them).  The JAX package's host-segmented
-loops and its ``safe_batch_op`` wrappers exist for a TPU runtime and are
-not ported; training (the BBMM surrogate gradient) comes in a later slice.
+(kernels K2/K3 where its gates send them).  ``W``'s gradient is ``Wᵀ`` (K4,
+``ops.cuda.interp.interp_w``), never a scatter, so training is deterministic
+on one card.  The JAX package's segmented programs become one host driver
+each (``optimize_segmented``, ``log_likelihood_segmented``); its
+``safe_batch_op`` wrappers exist for a TPU runtime and are not ported.
 
 Two choices keep the stochastic estimates independent of the eigensolver, so
 that the card and the JAX package agree on the same probes: the per-dimension
@@ -38,10 +43,12 @@ from gp_grief_tpu_torch.kernels.base import inverse_positive
 from gp_grief_tpu_torch.kernels.grid import cov_grid
 from gp_grief_tpu_torch.kernels.stationary import Stationary
 from gp_grief_tpu_torch.models.base import BaseModel, check_xy, resolve_device
+from gp_grief_tpu_torch.optimize import FitResult
 from gp_grief_tpu_torch.models.gp_kron import _clamp_psd
 from gp_grief_tpu_torch.ops import lanczos as _lz
-from gp_grief_tpu_torch.ops.cg import CGInfo, cg_solve, cg_solve_refined
-from gp_grief_tpu_torch.ops.cuda.interp import interp_wt
+from gp_grief_tpu_torch.ops.cg import CGInfo, cg_segments, cg_solve, cg_solve_refined
+from gp_grief_tpu_torch.ops.cuda.interp import interp_w, interp_wt
+from gp_grief_tpu_torch.ops.fused import fused_cg_slq
 from gp_grief_tpu_torch.ops.interp import (
     build_corner_stream,
     build_interp_plan,
@@ -65,7 +72,6 @@ __all__ = ["GPSKIRegression", "lattice_cbar", "warn_lattice_small_n"]
 # module docstring); far above each precision's eigensolver noise at the
 # products the deflation keeps.
 TIE_QUANTUM = {torch.float64: 1e-7, torch.float32: 1e-4}
-_TRAINING = "the SKI training slice (ROADMAP Queue 1)"
 
 
 def warn_lattice_small_n(n: int, xg) -> None:
@@ -141,11 +147,14 @@ class GPSKIRegression(BaseModel):
     ``torch.Generator`` of the NLML's Rademacher probes (fresh per
     evaluation, so repeated evaluations agree, as with the JAX package's
     fixed key).  ``lattice_x3`` sends the lattice dual's Q/Qᵀ applies to the
-    X3 preset on the card (``kron_matvec_fast``).  The JAX package's
-    ``train_mixed16`` is a training option and comes with the training slice.
+    X3 preset on the card (``kron_matvec_fast``).  ``train_mixed16`` runs
+    :meth:`optimize_segmented`'s lattice-dual solves with bf16 state and bf16
+    Kronecker inputs (the data solver ignores it); the reported NLML and
+    predictions always solve in the working dtype.
 
-    Not ported, each raising ``NotImplementedError``: ``optimize``,
-    ``optimize_segmented`` and ``log_likelihood_segmented``.
+    ``optimize`` trains through :func:`~gp_grief_tpu_torch.optimize.fit` on
+    the surrogate gradient of :meth:`_loss`; :meth:`optimize_segmented` is
+    the per-step host driver for large ``n``.
     """
 
     def __init__(
@@ -167,6 +176,7 @@ class GPSKIRegression(BaseModel):
         solver: str = "data",
         wtw_stencil: bool = True,
         lattice_x3: bool = True,
+        train_mixed16: bool = False,
         seed: int = 0,
         dtype: Optional[torch.dtype] = None,
         device=None,
@@ -213,6 +223,7 @@ class GPSKIRegression(BaseModel):
         self.solver = solver
         self._use_wtw_stencil = bool(wtw_stencil)
         self._lattice_x3 = bool(lattice_x3)
+        self._train_mixed16 = bool(train_mixed16)
         if solver == "lattice":
             warn_lattice_small_n(self.n, xg_np)
         self._opts = dict(
@@ -222,6 +233,9 @@ class GPSKIRegression(BaseModel):
         self.seed = int(seed)
         # CGInfo of the last NLML's solve (None before one).
         self.cg_info: Optional[CGInfo] = None
+        # CG iterations of the last host driver's solve (optimize_segmented's
+        # step, log_likelihood_segmented), as dispatched (None before one).
+        self.cg_iterations: Optional[int] = None
         kerns = list(kern_list) if isinstance(kern_list, (list, tuple)) else [kern_list] * len(xg_np)
         self.kernels = nn.ModuleList([copy.deepcopy(k).to(dtype=dtype, device=device) for k in kerns])
         self.log_noise = nn.Parameter(inverse_positive(noise_var, dtype=dtype, device=device))
@@ -260,8 +274,17 @@ class GPSKIRegression(BaseModel):
     def _factors(self):
         return tuple(K.contiguous() for K in cov_grid(self.kernels, self.xg, dim_noise_var=self.dim_noise_var))
 
-    def _generator(self) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(self.seed)
+    def _generator(self, step: Optional[int] = None) -> torch.Generator:
+        """The probes' generator: seeded from ``seed`` for an NLML, and from
+        ``(seed, 1000 + step)`` for a training step of
+        :meth:`optimize_segmented` (JAX: ``fold_in(key, 1000 + it)``)."""
+        seed = self.seed
+        if step is not None:
+            seed = int(np.random.SeedSequence([self.seed, 1000 + int(step)]).generate_state(1)[0])
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def _needs_grad(self) -> bool:
+        return torch.is_grad_enabled() and any(p.requires_grad for _, p in self.named_parameters())
 
     def _rmatvec_bm(self, u_bm):
         """Batch-major ``Wᵀ u`` ``(B, n) → (B, M)``: kernel K4 on the card in
@@ -273,8 +296,9 @@ class GPSKIRegression(BaseModel):
         return interp_wt(self._plan, u_bm)
 
     def _w_bm(self, v_lat_bm):
-        """Batch-major forward ``W v`` ``(B, M) → (B, n)``: one fused gather."""
-        return interp_matvec_bm_fast(self._plan, v_lat_bm)
+        """Batch-major forward ``W v`` ``(B, M) → (B, n)``: one fused gather,
+        differentiated by ``Wᵀ`` (K4 on the card)."""
+        return interp_w(self._plan, v_lat_bm)
 
     def _matvec_bm(self, factors, sigma2, precision=None):
         """Batch-major ``(K̂ + σ²I)``: ``v (B, n) → (B, n)``, the batch folded
@@ -368,37 +392,43 @@ class GPSKIRegression(BaseModel):
         card), else ``Wᵀ(W v)`` through the interpolation plan."""
         if self._wtw_op is not None:
             return self._wtw_op
-        return lambda v_bm: self._rmatvec_bm(interp_matvec_bm_fast(self._plan, v_bm))
+        return lambda v_bm: self._rmatvec_bm(self._w_bm(v_bm))
 
     def _lattice_precision(self) -> str:
         """The Q/Qᵀ applies' precision: the X3 preset on the card (exact f32,
         K2/K3 where the gates send it), else exact."""
         return X3 if self._lattice_x3 and self.device.type == "cuda" else "highest"
 
-    def _make_lattice_ops(self, Qs, wjs):
+    def _make_lattice_ops(self, Qs, wjs, mixed16: bool = False):
         """Batch-major ``(B, M)`` closures ``(to_dual, from_dual, white)`` with
         the whitened dual in the Kronecker eigenbasis (``D = diag(wjs)``):
 
         - ``to_dual(u) = D ⊙ (Qᵀu)``;
         - ``from_dual(ṽ) = Q(D ⊙ ṽ)``;
         - ``white(ṽ) = ṽ + to_dual(WᵀW·u − c̄·u)``, ``u = from_dual(ṽ)``.
+
+        ``mixed16`` hands each Kronecker matvec a bf16 input (K2's bf16
+        member on the card) and returns it in ``wjs``'s dtype; the diagonal
+        scalings and ``WᵀW`` stay in that dtype (JAX ``gp_ski.py:498-562``).
         """
         cbar = self._lattice_cbar()
         Qs = tuple(Q.contiguous() for Q in Qs)
         QsT = tuple(Q.T.contiguous() for Q in Qs)
         prec = self._lattice_precision()
+        wd = wjs.dtype
+        mv_in = (lambda t: t.to(torch.bfloat16)) if mixed16 else (lambda t: t)
+
+        def kron(fs, t, B):
+            eyeB = torch.eye(B, dtype=wd, device=t.device)
+            return kron_matvec_fast((eyeB, *fs), mv_in(t), precision=prec).reshape(B, -1).to(wd)
 
         def to_dual(v_bm):
             B = v_bm.shape[0]
-            eyeB = torch.eye(B, dtype=v_bm.dtype, device=v_bm.device)
-            t = kron_matvec_fast((eyeB, *QsT), v_bm.reshape(-1), precision=prec).reshape(B, -1)
-            return t * wjs[None, :]
+            return kron(QsT, v_bm.reshape(-1), B) * wjs[None, :]
 
         def from_dual(v_bm):
             B = v_bm.shape[0]
-            t = (v_bm * wjs[None, :]).reshape(-1)
-            eyeB = torch.eye(B, dtype=t.dtype, device=t.device)
-            return kron_matvec_fast((eyeB, *Qs), t, precision=prec).reshape(B, -1)
+            return kron(Qs, (v_bm * wjs[None, :]).reshape(-1), B)
 
         wtw = self._wtw_bm_op()
 
@@ -416,7 +446,7 @@ class GPSKIRegression(BaseModel):
         to_dual, from_dual, white = self._make_lattice_ops(Qs, wjs)
         u = to_dual(self._rmatvec_bm(rhs_bm))
         gam, self.cg_info = cg_solve(white, u, tol=o["cg_tol"], max_iters=o["cg_iters"], layout="bm",
-                                     return_info=True)
+                                     return_info=True, implicit_diff=False)
         return (rhs_bm - self._w_bm(from_dual(gam))) / sigma2
 
     # -- solves ---------------------------------------------------------------------
@@ -439,12 +469,12 @@ class GPSKIRegression(BaseModel):
             solw, self.cg_info = cg_solve_refined(
                 lambda vv: _w(mv_fast(_w(vv))), lambda vv: _w(mv(_w(vv))), _w(rhs_bm),
                 tol=max(o["cg_tol"], 1e-7), inner_iters=50, max_restarts=max(1, o["cg_iters"] // 50),
-                layout="bm", return_info=True,
+                layout="bm", return_info=True, implicit_diff=False,
             )
         else:
             solw, self.cg_info = cg_solve(
                 lambda vv: _w(mv(_w(vv))), _w(rhs_bm), tol=o["cg_tol"], max_iters=o["cg_iters"],
-                layout="bm", return_info=True,
+                layout="bm", return_info=True, implicit_diff=False,
             )
         return _w(solw)
 
@@ -459,18 +489,52 @@ class GPSKIRegression(BaseModel):
         with torch.no_grad():
             return self._matvec(self._factors(), torch.exp(self.log_noise))(v)
 
-    # -- NLML (value) ------------------------------------------------------------------
+    # -- NLML and its surrogate gradient -------------------------------------------
+
+    def _surrogate(self, value, g_sur):
+        """``value`` with the surrogate ``g_sur()``'s gradient attached
+        (``value + g − stop_gradient(g)``), built only when a gradient is
+        needed; ``value=None`` (the SLQ skipped) leaves ``g`` itself."""
+        if value is not None and not self._needs_grad():
+            return value
+        g = g_sur()
+        return g if value is None else value + g - g.detach()
+
+    def _data_objective(self, mv, sol, z, ld):
+        """The data solver's NLML from its solves ``sol = [α; S]`` (``S`` the
+        probe solves ``A⁻¹z``): ``quad = 2yᵀα − αᵀAα``, exact in value and
+        gradient at the solution, and ``log|A|`` (value ``ld``) with the
+        Hutchinson surrogate ``Σ S ⊙ A z / R``."""
+        alpha = sol[0]
+        quad = 2.0 * torch.dot(self.y, alpha) - torch.dot(alpha, mv(alpha[None, :])[0])
+        ld = self._surrogate(ld, lambda: torch.sum(sol[1:] * mv(z)) / z.shape[0])
+        return 0.5 * (quad + ld + self.n * math.log(2.0 * math.pi))
+
+    def _lattice_terms(self, factors, sigma2):
+        """``(white, ṽ, Σ log(σ² + c̄λ))``: the whitened dual's operator, its
+        right-hand side ``ṽ = D·Qᵀ(Wᵀy)`` and the closed-form log-det term."""
+        Qs, wjs, ld_MK = self._lattice_spectra(factors, sigma2)
+        to_dual, _, white = self._make_lattice_ops(Qs, wjs)
+        return white, to_dual(self._rmatvec_bm(self.y[None, :])), ld_MK
+
+    def _lattice_objective(self, sigma2, white, vt, ld_MK, sol, z, ld_white):
+        """The lattice dual's NLML from its solves ``sol = [γ; S]``: the
+        closed-form terms differentiate exactly, ``log|W̃|`` (value
+        ``ld_white``) carries the Hutchinson surrogate ``Σ S ⊙ W̃z / R``."""
+        gam = sol[0]
+        quad = (torch.dot(self.y, self.y) - 2.0 * torch.dot(vt[0], gam)
+                + torch.dot(gam, white(gam[None, :])[0])) / sigma2
+        ld_white = self._surrogate(ld_white, lambda: torch.sum(sol[1:] * white(z)) / z.shape[0])
+        ld = (self.n - self.M) * self.log_noise + ld_MK + ld_white
+        return 0.5 * (quad + ld + self.n * math.log(2.0 * math.pi))
 
     def _loss(self) -> torch.Tensor:
-        """Negative log marginal likelihood, value only.  The Hutchinson
-        probe solves stay in the batch (``1 + num_probes`` right-hand sides),
-        so the CG runs the JAX package's iterations; their surrogate gradient
-        comes with training."""
-        if torch.is_grad_enabled() and any(p.requires_grad for _, p in self.named_parameters()):
-            raise NotImplementedError(
-                f"GPSKIRegression has no gradient yet: the BBMM surrogate gradient comes with {_TRAINING}; "
-                "evaluate under torch.no_grad() (log_likelihood() does)"
-            )
+        """Negative log marginal likelihood with the BBMM surrogate gradient
+        (JAX ``gp_ski.py:711-757``).  The Hutchinson probe solves stay in the
+        batch (``1 + num_probes`` right-hand sides), so the CG runs the JAX
+        package's iterations; the solves, the preconditioner and the SLQ
+        value run without a graph, and the surrogate is built only when a
+        gradient is needed."""
         if self.solver == "lattice":
             return self._loss_lattice()
         o = self._opts
@@ -478,59 +542,203 @@ class GPSKIRegression(BaseModel):
         sigma2 = torch.exp(self.log_noise)
         factors = self._factors()
         mv = self._matvec_bm(factors, sigma2)
-        pre = self._build_precond(factors, sigma2)
         gen = self._generator()
         z = _lz.rademacher((o["num_probes"], n), dtype=self.dtype, device=self.device, generator=gen)
-        sol = self._solve_bm(factors, sigma2, torch.cat([self.y[None, :], z], dim=0), pre=pre)
-        alpha = sol[0]
-        quad = 2.0 * torch.dot(self.y, alpha) - torch.dot(alpha, mv(alpha[None, :])[0])
-        # SLQ on the exact operator, whitened when deflated:
-        # log|A| = log|M| + log|M⁻½AM⁻½|.
-        if pre is not None:
-            M_inv_sqrt, ld_off = pre[1], pre[2]
-            slq_mv = lambda vv: M_inv_sqrt(mv(M_inv_sqrt(vv)))  # noqa: E731
-        else:
-            slq_mv, ld_off = mv, 0.0
-        ld = ld_off + _lz.slq_logdet(
-            slq_mv, n, generator=gen, num_probes=o["num_probes"], lanczos_iters=o["lanczos_iters"],
-            dtype=self.dtype, device=self.device, layout="bm",
-        )
-        return 0.5 * (quad + ld + n * math.log(2.0 * math.pi))
+        with torch.no_grad():
+            pre = self._build_precond(factors, sigma2)
+            sol = self._solve_bm(factors, sigma2, torch.cat([self.y[None, :], z], dim=0), pre=pre)
+            # SLQ on the exact operator, whitened when deflated:
+            # log|A| = log|M| + log|M⁻½AM⁻½|.
+            if pre is not None:
+                M_inv_sqrt, ld_off = pre[1], pre[2]
+                slq_mv = lambda vv: M_inv_sqrt(mv(M_inv_sqrt(vv)))  # noqa: E731
+            else:
+                slq_mv, ld_off = mv, 0.0
+            ld = ld_off + _lz.slq_logdet(
+                slq_mv, n, generator=gen, num_probes=o["num_probes"], lanczos_iters=o["lanczos_iters"],
+                dtype=self.dtype, device=self.device, layout="bm",
+            )
+        return self._data_objective(mv, sol, z, ld)
 
     def _loss_lattice(self) -> torch.Tensor:
-        """NLML through the lattice dual (see :meth:`_lattice_spectra`)."""
+        """NLML through the lattice dual (see :meth:`_lattice_spectra`), with
+        the surrogate of :meth:`_lattice_objective` (JAX ``gp_ski.py:577-620``)."""
         o = self._opts
-        n, M = self.n, self.M
+        sigma2 = torch.exp(self.log_noise)
+        white, vt, ld_MK = self._lattice_terms(self._factors(), sigma2)
+        gen = self._generator()
+        z = _lz.rademacher((o["num_probes"], self.M), dtype=self.dtype, device=self.device, generator=gen)
+        with torch.no_grad():
+            sol, self.cg_info = cg_solve(white, torch.cat([vt, z], dim=0), tol=o["cg_tol"],
+                                         max_iters=o["cg_iters"], layout="bm", return_info=True,
+                                         implicit_diff=False)
+            ld_white = _lz.slq_logdet(
+                white, self.M, generator=gen, num_probes=o["num_probes"], lanczos_iters=o["lanczos_iters"],
+                dtype=self.dtype, device=self.device, layout="bm",
+            )
+        return self._lattice_objective(sigma2, white, vt, ld_MK, sol, z, ld_white)
+
+    # -- the host drivers ------------------------------------------------------------
+
+    def _data_op(self, factors, sigma2):
+        """The data solver's working operator ``(op, M^{-1/2} or None, log|M|)``:
+        ``M^{-1/2} A M^{-1/2}`` with the rank-r deflation, else ``A``."""
+        mv = self._matvec_bm(factors, sigma2)
+        pre = self._build_precond(factors, sigma2)
+        if pre is None:
+            return mv, None, 0.0
+        w = pre[1]
+        return (lambda vv: w(mv(w(vv)))), w, pre[2]
+
+    def _step_solves(self, generator, R: int, segment_iters: int):
+        """One training step's solves, without a graph: ``(sol (1+R, dim),
+        z (R, dim), iterations)``, the y-solve and the ``R`` probe solves in
+        the solver's working space (γ's of the lattice dual, or ``α``'s of
+        the data solver, solved whitened with the deflation), by
+        :func:`~gp_grief_tpu_torch.ops.cg.cg_segments` with its stagnation
+        stop.  ``train_mixed16`` runs the lattice solves with bf16 state and
+        bf16 Kronecker inputs (JAX ``gp_ski.py:1187-1334``)."""
+        o = self._opts
+        lattice = self.solver == "lattice"
+        with torch.no_grad():
+            sigma2 = torch.exp(self.log_noise)
+            factors = self._factors()
+            z = _lz.rademacher((R, self.M if lattice else self.n), dtype=self.dtype, device=self.device,
+                               generator=generator)
+            unwhiten = None
+            if lattice:
+                Qs, wjs, _ = self._lattice_spectra(factors, sigma2)
+                to_dual, _, op = self._make_lattice_ops(Qs, wjs)
+                rhs = torch.cat([to_dual(self._rmatvec_bm(self.y[None, :])), z], dim=0)
+                if self._train_mixed16:
+                    op = self._make_lattice_ops(Qs, wjs, mixed16=True)[2]
+            else:
+                op, unwhiten, _ = self._data_op(factors, sigma2)
+                rhs = torch.cat([self.y[None, :], z], dim=0)
+                if unwhiten is not None:
+                    rhs = unwhiten(rhs)
+            mixed = lattice and self._train_mixed16
+            x, iters = cg_segments(op, rhs, tol=o["cg_tol"], max_iters=o["cg_iters"],
+                                   segment_iters=int(segment_iters),
+                                   state_dtype=torch.bfloat16 if mixed else None)
+            sol = unwhiten(x) if unwhiten is not None else x
+        return sol, z, iters
+
+    def _step_objective(self, sol, z) -> torch.Tensor:
+        """The surrogate objective with one step's solves injected: the NLML
+        less its log-det value, whose gradient is ``jax.grad(self._loss)``'s
+        at matching probes (JAX ``optimize_segmented``'s ``surrogate``)."""
         sigma2 = torch.exp(self.log_noise)
         factors = self._factors()
-        Qs, wjs, ld_MK = self._lattice_spectra(factors, sigma2)
-        to_dual, _, white = self._make_lattice_ops(Qs, wjs)
-        vt = to_dual(self._rmatvec_bm(self.y[None, :]))  # ṽ = D·Qᵀ(Wᵀy)
-        gen = self._generator()
-        z = _lz.rademacher((o["num_probes"], M), dtype=self.dtype, device=self.device, generator=gen)
-        sol, self.cg_info = cg_solve(white, torch.cat([vt, z], dim=0), tol=o["cg_tol"], max_iters=o["cg_iters"],
-                                     layout="bm", return_info=True)
-        gam = sol[0]
-        quad = (torch.dot(self.y, self.y) - 2.0 * torch.dot(vt[0], gam)
-                + torch.dot(gam, white(gam[None, :])[0])) / sigma2
-        ld_white = _lz.slq_logdet(
-            white, M, generator=gen, num_probes=o["num_probes"], lanczos_iters=o["lanczos_iters"],
-            dtype=self.dtype, device=self.device, layout="bm",
+        if self.solver == "lattice":
+            white, vt, ld_MK = self._lattice_terms(factors, sigma2)
+            return self._lattice_objective(sigma2, white, vt, ld_MK, sol, z, None)
+        return self._data_objective(self._matvec_bm(factors, sigma2), sol, z, None)
+
+    def optimize_segmented(
+        self,
+        *,
+        max_iters: int = 30,
+        learning_rate: float = 0.05,
+        num_probes: int = 4,
+        cg_segment_iters: int = 50,
+        verbose: bool = False,
+        callback=None,
+    ) -> FitResult:
+        """Adam training one step at a time, for large ``n``:
+
+        1. the y-solve and ``num_probes`` probe solves, without a graph, in
+           the solver's working space (:meth:`_step_solves`), the probes
+           fresh each step from ``(seed, 1000 + step)``;
+        2. the surrogate objective with those solves injected, and its
+           gradient by autograd (the SLQ value is skipped);
+        3. a ``torch.optim.Adam`` update.
+
+        Parameters held by :meth:`fix` get a zero gradient.  ``callback(step,
+        surrogate, info)``, called after each update, gets ``info`` with the
+        step's ``solve_s``, ``grad_s`` (host seconds, each ending in a read
+        of the device) and ``cg_iterations``.  Returns a
+        :class:`~gp_grief_tpu_torch.optimize.FitResult` whose ``losses`` are
+        the surrogate objective (its trend is meaningful, its level is not:
+        :meth:`log_likelihood_segmented` gives the NLML) and whose
+        ``grad_norms`` are NaN, as in the JAX package.
+        """
+        if self.solver == "lattice":
+            self._lattice_cbar()
+        named = list(self._leaves())
+        params = [p for _, p in named]
+        fixed = self._fixed_mask() or {}
+        frozen = [p for name, p in named if fixed.get(name, False)]
+        opt = torch.optim.Adam(params, lr=learning_rate, eps=1e-8)
+        losses = []
+        t0 = time.perf_counter()
+        for it in range(int(max_iters)):
+            t_s = time.perf_counter()
+            sol, z, iters = self._step_solves(self._generator(it), int(num_probes), cg_segment_iters)
+            self.cg_iterations = iters
+            sol[:1].sum().item()  # the solves' end, so that the two times split the step
+            t_solve = time.perf_counter() - t_s
+            t_s = time.perf_counter()
+            opt.zero_grad(set_to_none=True)
+            val = self._step_objective(sol, z)
+            val.backward()
+            for p in frozen:
+                if p.grad is not None:
+                    p.grad.zero_()
+            losses.append(float(val.detach()))
+            t_grad = time.perf_counter() - t_s
+            opt.step()
+            if verbose:
+                print(f"[optimize_segmented] iter {it + 1:3d} surrogate {losses[-1]:.4f} "
+                      f"(solves {t_solve:.2f} s, {iters} CG iterations; grad {t_grad:.2f} s)", flush=True)
+            if callback is not None:
+                callback(it, losses[-1], {"solve_s": t_solve, "grad_s": t_grad, "cg_iterations": iters})
+        return FitResult(
+            losses=np.asarray(losses), grad_norms=np.full(len(losses), np.nan), iterations=len(losses),
+            wall_time=time.perf_counter() - t0, converged=False, opt_state=opt.state_dict(),
         )
-        ld = (n - M) * self.log_noise + ld_MK + ld_white
-        return 0.5 * (quad + ld + n * math.log(2.0 * math.pi))
 
-    def optimize(self, **kwargs):
-        raise NotImplementedError(f"GPSKIRegression.optimize (the BBMM surrogate gradient) comes with {_TRAINING}")
-
-    def optimize_segmented(self, **kwargs):
-        raise NotImplementedError(f"GPSKIRegression.optimize_segmented comes with {_TRAINING}")
-
-    def log_likelihood_segmented(self, **kwargs):
-        raise NotImplementedError(
-            "log_likelihood_segmented exists for a TPU runtime's per-program time limit and comes with "
-            f"{_TRAINING}; log_likelihood() runs the CG and Lanczos loops on the host already"
-        )
+    def log_likelihood_segmented(
+        self,
+        *,
+        cg_segment_iters: int = 60,
+        probe_chunk: int = 8,
+        fuse_probes: bool = True,
+        verbose: bool = False,
+    ) -> float:
+        """Log marginal likelihood by the fused CG + SLQ host driver
+        (:func:`~gp_grief_tpu_torch.ops.fused.fused_cg_slq`): the SLQ probes
+        in chunks of ``probe_chunk``, each chunk's ``lanczos_iters`` steps
+        also advancing the y-solve with ``fuse_probes``, then CG segments of
+        ``cg_segment_iters`` to the tolerance, with the Gauss quadrature in
+        float64 on the host.  The estimator of :meth:`log_likelihood` (JAX
+        ``gp_ski.py:759-868``); its probes are drawn chunk by chunk from the
+        model's generator, so the two agree within SLQ sampling error.
+        Value only."""
+        o = self._opts
+        lattice = self.solver == "lattice"
+        with torch.no_grad():
+            sigma2 = torch.exp(self.log_noise)
+            factors = self._factors()
+            if lattice:
+                op, rhs, ld_MK = self._lattice_terms(factors, sigma2)
+                unwhiten, ld_off = None, None
+            else:
+                op, unwhiten, ld_off = self._data_op(factors, sigma2)
+                rhs = self.y[None, :] if unwhiten is None else unwhiten(self.y[None, :])
+            x, ld_white, iters = fused_cg_slq(
+                op, rhs, generator=self._generator(), num_probes=o["num_probes"],
+                lanczos_iters=o["lanczos_iters"], probe_chunk=probe_chunk, cg_tol=o["cg_tol"],
+                cg_iters=o["cg_iters"], cg_segment_iters=cg_segment_iters, fuse_probes=fuse_probes,
+                verbose=verbose,
+            )
+            self.cg_iterations = iters
+            if lattice:
+                nlml = self._lattice_objective(sigma2, op, rhs, ld_MK, x, None, ld_white)
+            else:
+                alpha = x if unwhiten is None else unwhiten(x)
+                nlml = self._data_objective(self._matvec_bm(factors, sigma2), alpha, None, ld_off + ld_white)
+        return -float(nlml)
 
     # -- prediction --------------------------------------------------------------------
 

@@ -6,14 +6,18 @@ Counterpart of ``gp_grief_tpu.ops.cg`` (``CGInfo``, ``_reducers``,
 per-system step sizes.  The JAX ``while_loop`` becomes a Python loop whose
 convergence test reads one ``(B,)`` residual vector per iteration; the
 ``lax.scan`` of :func:`_cg_fixed` becomes a loop with no test at all.  The
-host-segmented solvers of the JAX package exist for a TPU runtime's
-per-program time limit and have no counterpart here.
+JAX package's host-segmented solvers exist for a TPU runtime's per-program
+time limit and have no counterpart here; :func:`cg_segments` is the host
+driver of SKI's training solves, which keep their segment-level stop.
 
-These are value solves: the implicit gradient (``lax.custom_linear_solve``)
-comes with the training slice.  Until then :func:`cg_solve` and
-:func:`cg_solve_refined` raise ``NotImplementedError`` when a gradient is
-required through them, rather than returning a solution that autograd would
-differentiate through the iterations.
+:func:`cg_solve` and :func:`cg_solve_refined` are differentiable by the
+implicit adjoint (``lax.custom_linear_solve(symmetric=True)`` in the JAX
+package): the iterations run under ``torch.no_grad()``, and autograd sees
+``x = x* + S(b − A x*)``, where ``S`` returns zeros forward and one more
+solve ``A⁻¹g`` backward.  So ``dx = A⁻¹(db − dA·x*)`` reaches ``b`` and every
+tensor the defining matvec closes over, with no parameter list, and the
+values are the solver's own bits.  ``implicit_diff=False`` keeps a value
+solve, which raises when a gradient is required through it.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-__all__ = ["CGInfo", "cg_solve", "cg_solve_refined"]
+__all__ = ["CGInfo", "cg_segments", "cg_solve", "cg_solve_refined"]
 
 Matvec = Callable[[torch.Tensor], torch.Tensor]
 
@@ -152,6 +156,71 @@ def _cg_fixed(matvec, b, x0, num_iters, M_inv, layout="col", state_dtype=None):
     return x, CGInfo(iterations=num_iters, residual_norm=torch.sqrt(_colsum(r32 * r32)))
 
 
+def _segment_mixed(matvec, state, segment_iters, _colsum, _bc, state_dtype):
+    """``segment_iters`` unpreconditioned CG iterations on ``(x, r, z, p, rz,
+    dead)`` with ``r`` and ``p`` carried, and handed to the matvec, in
+    ``state_dtype`` (:func:`_cg_fixed`'s mixed16 body).  The state enters and
+    leaves in its own dtype with ``z == r`` (JAX ``_segment_scan_mixed``)."""
+    x, r, _, p, rz, dead = state
+    wd = x.dtype
+    r, p = r.to(state_dtype), p.to(state_dtype)
+    for _ in range(segment_iters):
+        Ap = matvec(p)
+        p32, Ap32 = p.to(wd), Ap.to(wd)
+        pAp = _colsum(p32 * Ap32)
+        # Same permanent breakdown freeze as _make_pcg_step.
+        ok = (pAp > 0) & (rz > 0) & torch.isfinite(pAp) & torch.isfinite(rz) & ~dead
+        alpha = torch.where(ok, rz / torch.where(ok, pAp, torch.ones_like(pAp)), torch.zeros_like(pAp))
+        x = x + _bc(alpha) * p32
+        r32 = r.to(wd) - _bc(alpha) * Ap32
+        rz_new = _colsum(r32 * r32)
+        dead = dead | ~ok | ~torch.isfinite(rz_new)
+        safe_rz = torch.where(rz == 0, torch.ones_like(rz), rz)
+        beta = torch.where(dead | (rz == 0), torch.zeros_like(rz), rz_new / safe_rz)
+        p = (r32 + _bc(beta) * p32).to(state_dtype)
+        r = r32.to(state_dtype)
+        rz = rz_new
+    r = r.to(wd)
+    return x, r, r, p.to(wd), rz, dead
+
+
+def cg_segments(op: Matvec, rhs: torch.Tensor, *, tol: float, max_iters: int, segment_iters: int,
+                state_dtype=None):
+    """Unpreconditioned CG on ``op`` (a whitened operator on ``(B, m)`` rows)
+    from zero, in segments of ``segment_iters`` iterations with one read of
+    the ``(B,)`` residual norms after each: the host driver of the JAX
+    package's segmented training solves (``gp_ski.py:1187-1228``).
+
+    It stops when every live row meets ``tol`` (relative, clamped at 20·eps),
+    after ``ceil(max_iters / segment_iters)`` segments, or when a segment
+    shrinks no row's residual by 1.2× (the arithmetic floor: bf16 state sits
+    near 3.6e-3 relative).  ``state_dtype`` runs each segment with that
+    state (:func:`_segment_mixed`).  Value only.  Returns ``(x, iterations)``."""
+    _colsum, _colnorm, _bc = _reducers("bm")
+    with torch.no_grad():
+        rz0 = _colsum(rhs * rhs)
+        state = (torch.zeros_like(rhs), rhs, rhs, rhs, rz0, torch.zeros(rz0.shape, dtype=torch.bool,
+                                                                         device=rhs.device))
+        stop = _stop(torch.sqrt(rz0), tol)
+        step = _make_pcg_step(op, lambda r_: r_, _colsum, _bc)
+        rnorm, dead = torch.sqrt(rz0), state[5]
+        iters = 0
+        for _ in range(max(1, -(-int(max_iters) // int(segment_iters)))):
+            if not bool(torch.any((rnorm > stop) & ~dead)):
+                break
+            prev = rnorm
+            if state_dtype is not None:
+                state = _segment_mixed(op, state, segment_iters, _colsum, _bc, state_dtype)
+            else:
+                for _ in range(segment_iters):
+                    state = step(*state)
+            iters += segment_iters
+            rnorm, dead = _colnorm(state[1]), state[5]
+            if not bool(torch.any(rnorm < prev / 1.2)):
+                break
+    return state[0], iters
+
+
 def _as_batch(b: torch.Tensor, layout: str):
     if layout not in ("col", "bm"):
         raise ValueError("layout must be 'col' or 'bm'")
@@ -169,9 +238,39 @@ def _as_batch(b: torch.Tensor, layout: str):
 def _no_gradient(name: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{name}: gradients through the solve (the implicit adjoint solve) are not ported "
-            "yet; call it under torch.no_grad() or on tensors that do not require grad"
+            f"{name}(implicit_diff=False) is a value solve with no gradient; call it under "
+            "torch.no_grad(), or with implicit_diff=True to differentiate through the solve"
         )
+
+
+class _AdjointSolve(torch.autograd.Function):
+    """``x`` forward, unchanged; backward, ``solve(g)`` to ``r`` and nothing to
+    ``x``.  With ``r = b − A x*`` recorded by autograd this is the implicit
+    gradient of ``x* = A⁻¹b`` (``A`` symmetric)."""
+
+    @staticmethod
+    def forward(ctx, solve, x, r):
+        ctx.solve = solve
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.no_grad():
+            return None, None, ctx.solve(g.contiguous())
+
+
+def _implicit(x: torch.Tensor, b: torch.Tensor, matvec: Matvec, solve: Callable) -> torch.Tensor:
+    """Attach the implicit gradient to the solution ``x`` of ``matvec(x) = b``.
+
+    The residual correction around ``x`` (JAX ``cg.py:352-361``'s warm start):
+    one more apply of ``matvec`` with autograd recording, only when grad mode
+    is on, and ``x`` itself when nothing it computes requires grad."""
+    if not torch.is_grad_enabled():
+        return x
+    r = b - matvec(x)
+    if not r.requires_grad:
+        return x
+    return _AdjointSolve.apply(solve, x, r)
 
 
 def cg_solve(
@@ -185,6 +284,7 @@ def cg_solve(
     return_info: bool = False,
     fixed_iters: Optional[int] = None,
     layout: str = "col",
+    implicit_diff: bool = True,
 ):
     """Solve ``A x = b`` for symmetric positive-definite ``A`` given its matvec.
 
@@ -194,17 +294,30 @@ def cg_solve(
     cap; ``M_inv`` an optional preconditioner ``v ↦ M⁻¹v`` in the same
     layout; ``fixed_iters`` runs exactly that many iterations with no
     convergence test.  Returns ``x`` (and :class:`CGInfo` with
-    ``return_info``).  Value only: raises ``NotImplementedError`` when ``b``
-    or ``x0`` requires grad with grad mode on.
+    ``return_info``).
+
+    ``implicit_diff`` (default): gradients reach ``b`` and the tensors
+    ``matvec`` closes over, through one more solve of the same kind from a
+    zero start (``M_inv`` preconditions it and carries no gradient; ``x0``
+    carries none either, since the solution does not depend on it).  Unlike
+    the JAX package, ``return_info=True`` stays differentiable.
+    ``implicit_diff=False``: a value solve, raising ``NotImplementedError``
+    when ``b`` or ``x0`` requires grad with grad mode on.
     """
-    _no_gradient("cg_solve", b, x0)
+    if not implicit_diff:
+        _no_gradient("cg_solve", b, x0)
     bb, unsqueeze = _as_batch(b, layout)
     x0b = torch.zeros_like(bb) if x0 is None else _as_batch(x0, layout)[0]
-    with torch.no_grad():
-        if fixed_iters is not None:
-            x, info = _cg_fixed(matvec, bb, x0b, fixed_iters, M_inv, layout)
-        else:
-            x, info = _cg_raw(matvec, bb, x0b, tol, max_iters, M_inv, layout)
+
+    def raw(rhs, start):
+        with torch.no_grad():
+            if fixed_iters is not None:
+                return _cg_fixed(matvec, rhs, start, fixed_iters, M_inv, layout)
+            return _cg_raw(matvec, rhs, start, tol, max_iters, M_inv, layout)
+
+    x, info = raw(bb, x0b)
+    if implicit_diff:
+        x = _implicit(x, bb, matvec, lambda g: raw(g, torch.zeros_like(g))[0])
     return (unsqueeze(x), info) if return_info else unsqueeze(x)
 
 
@@ -262,6 +375,7 @@ def cg_solve_refined(
     return_info: bool = False,
     layout: str = "col",
     state_dtype=None,
+    implicit_diff: bool = True,
 ):
     """Mixed-precision CG by iterative refinement (Carson–Higham).
 
@@ -275,15 +389,27 @@ def cg_solve_refined(
 
     Returns ``x`` (and :class:`CGInfo` with ``iterations`` = restarts ×
     ``inner_iters``, the final true residual norms and the fallback's
-    iterations, with ``return_info``).  Value only: raises
-    ``NotImplementedError`` when ``b`` requires grad with grad mode on.
+    iterations, with ``return_info``).
+
+    ``implicit_diff`` (default): differentiable as :func:`cg_solve`, with
+    ``matvec_exact`` the defining operator: the backward is one more refined
+    solve, and gradients reach ``b`` and the tensors ``matvec_exact`` closes
+    over, not ``matvec_fast``'s or ``M_inv``'s.  ``implicit_diff=False``: a
+    value solve, raising ``NotImplementedError`` when ``b`` requires grad
+    with grad mode on.
     """
-    _no_gradient("cg_solve_refined", b)
+    if not implicit_diff:
+        _no_gradient("cg_solve_refined", b)
     bb, unsqueeze = _as_batch(b, layout)
-    with torch.no_grad():
-        x, rnorm, outer, fallback = _refined(
-            matvec_fast, matvec_exact, bb, tol, inner_iters, max_restarts, M_inv, layout, state_dtype
-        )
+
+    def raw(rhs):
+        with torch.no_grad():
+            return _refined(matvec_fast, matvec_exact, rhs, tol, inner_iters, max_restarts, M_inv, layout,
+                            state_dtype)
+
+    x, rnorm, outer, fallback = raw(bb)
+    if implicit_diff:
+        x = _implicit(x, bb, matvec_exact, lambda g: raw(g)[0])
     if return_info:
         return unsqueeze(x), CGInfo(iterations=outer * inner_iters, residual_norm=rnorm,
                                     fallback_iterations=fallback)

@@ -15,6 +15,11 @@ its operands and then
 pass is ``W`` applied to the cotangent (the fused gather
 :func:`~gp_grief_tpu_torch.ops.interp.interp_matvec_bm_fast`), as in the JAX
 package's custom VJP.
+
+:func:`interp_w` is the forward gather ``W v`` with K4 as its backward: the
+adjoint of ``W`` is ``Wᵀ``, so its gradient is the same deterministic
+segmented sum, where autograd's own rule for the gather would scatter with
+atomic adds.  Its launches count in ``interp_wt.launches`` too.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import torch
 from gp_grief_tpu_torch.ops.cuda import _build
 from gp_grief_tpu_torch.ops.interp import InterpPlan, interp_matvec_bm_fast, interp_rmatvec_bm_exact
 
-__all__ = ["interp_wt"]
+__all__ = ["interp_w", "interp_wt"]
 
 _SYMBOLS = {torch.float32: "gp_grief_interp_wt_f32", torch.float64: "gp_grief_interp_wt_f64"}
 
@@ -94,3 +99,25 @@ def interp_wt(plan: InterpPlan, u_bm: torch.Tensor) -> torch.Tensor:
 
 
 interp_wt.launches = 0
+
+
+class _InterpW(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, plan, v):
+        ctx.plan = plan
+        return interp_matvec_bm_fast(plan, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, _forward(ctx.plan, g.contiguous())
+
+
+def interp_w(plan: InterpPlan, v_bm: torch.Tensor) -> torch.Tensor:
+    """``W v`` for batch-major lattice vectors ``v_bm`` ``(B, M)`` → ``(B, n)``
+    (one fused gather).  Differentiable in ``v_bm``, with ``Wᵀ`` (K4 on the
+    card, its plain version on the CPU) as the backward."""
+    if v_bm.ndim != 2 or int(v_bm.shape[1]) != plan.M:
+        raise ValueError(f"interp_w: v must be (B, {plan.M}), got {tuple(v_bm.shape)}")
+    if torch.is_grad_enabled() and v_bm.requires_grad:
+        return _InterpW.apply(plan, v_bm)
+    return interp_matvec_bm_fast(plan, v_bm)  # a solver's apply: no graph to build

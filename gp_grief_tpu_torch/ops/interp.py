@@ -446,7 +446,10 @@ def interp_rmatvec_bm_exact(plan: InterpPlan, u_bm: torch.Tensor) -> torch.Tenso
 
 def interp_matvec_bm_fast(plan: InterpPlan, v_grid_bm: torch.Tensor) -> torch.Tensor:
     """Batch-major ``W @ v`` via one fused gather over all ``2^d`` corners:
-    ``(B, M) → (B, n)``."""
+    ``(B, M) → (B, n)``.  Autograd's rule for the gather scatters with
+    atomic adds on the card; differentiate through
+    :func:`gp_grief_tpu_torch.ops.cuda.interp.interp_w`, whose backward is
+    ``Wᵀ`` (K4)."""
     g = v_grid_bm[:, plan.gather_flat]  # (B, 2^d, n)
     return torch.sum(plan.gather_w[None, :, :] * g, dim=1)
 

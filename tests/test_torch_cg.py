@@ -166,13 +166,15 @@ def test_cg_solve_refined_nan_poisoned_inner_solve_falls_back():
 
 
 def test_cg_value_solves_refuse_a_required_gradient():
+    """``implicit_diff=False`` keeps a value solve: a required gradient
+    raises rather than differentiating through the iterations."""
     Ks, b = _system()
     _, _, _, tmv = _ops(Ks)
     bt = torch.as_tensor(b[:, 0]).requires_grad_()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tcg.cg_solve(tmv, bt)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tcg.cg_solve_refined(tmv, tmv, bt)
+    with pytest.raises(NotImplementedError, match="value solve"):
+        tcg.cg_solve(tmv, bt, implicit_diff=False)
+    with pytest.raises(NotImplementedError, match="value solve"):
+        tcg.cg_solve_refined(tmv, tmv, bt, implicit_diff=False)
     with torch.no_grad():
         assert tcg.cg_solve(tmv, bt, tol=1e-8).shape == bt.shape
     with pytest.raises(ValueError, match="layout"):

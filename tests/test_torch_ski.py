@@ -142,9 +142,13 @@ def test_params_from_jax_on_a_ski_model():
 
 
 def test_training_entry_points_raise():
-    _, tm = _pair()
-    for name in ("optimize", "optimize_segmented", "log_likelihood_segmented"):
-        with pytest.raises(NotImplementedError, match="training slice|per-program"):
-            getattr(tm, name)()
-    with pytest.raises(NotImplementedError, match="no gradient yet"):
-        tm._loss()
+    """The training entry points, which raised before the training slice,
+    run for both solvers: two steps of ``optimize`` (through ``fit``) and of
+    ``optimize_segmented``, and the segmented NLML, all finite."""
+    for solver in ("data", "lattice"):
+        _, tm = _pair(solver=solver, precond_rank=12, cg_tol=1e-8)
+        fit = tm.optimize(optimizer="adam", max_iters=2, learning_rate=0.05)
+        seg = tm.optimize_segmented(max_iters=2, num_probes=2, cg_segment_iters=20)
+        ll = tm.log_likelihood_segmented(probe_chunk=2)
+        assert fit.iterations == seg.iterations == 2 and tm.cg_iterations > 0
+        assert np.all(np.isfinite(fit.losses)) and np.all(np.isfinite(seg.losses)) and np.isfinite(ll)
