@@ -75,12 +75,27 @@ non-zero without printing the final line:
              lower, per step solve and gradient wall, device time, idle share,
              peak memory, CG iterations and launches; ski1m_lattice's
              ``log_likelihood_segmented`` against ``log_likelihood``.
+13. gp_iter — ``GPRegression``'s iterative path, matrix-free, on
+             benchmarks/exp_r15_train500k.py's recipe (GP_ITER): float64 at
+             n = 4096 with the JAX package's numpy probes against
+             tools/gp_iterative_reference_f64.json (segmented NLML, loss and
+             gradient, one optimize_segmented step, predict); gp40k_matfree
+             in float32 against the float64 Cholesky model on the card (the
+             segmented NLML fused and separate, the loss and gradient,
+             predict, mixed16, 5 Adam steps of optimize and 3 of
+             optimize_segmented, each twice bit for bit and the Cholesky NLML
+             lower after), with wall, device time, idle share, peak memory,
+             CG iterations and one apply's device time beside its bound
+             (device time from NVML's busy share: BusySampler);
+             gp500k_matfree (one apply at n = 500k against float64 rows,
+             then one segmented NLML at GP500K_NLML_N); optimize_segmented
+             at GP_ITER_TRAIN_N (PERF.md §4 gives the cuts).
 
 Then the ``nvidia-smi`` name/power-limit line, one ``{"kernels": [...]}``
 line (K1 launches from phases 4-5 and configs, K2/K3 from phase 7, K4/K5 from
 phase 9's float32 runs, K6-K8 from phase 10; ``training_launches`` from
-phases 11-12) and, last, ``{"ok": true, "device": {...}}``.  This script
-imports no JAX.
+phases 11-12; phase 13 launches none) and, last, ``{"ok": true, "device":
+{...}}``.  This script imports no JAX.
 """
 
 from __future__ import annotations
@@ -1655,6 +1670,403 @@ def phase_ski_train(card: str, name: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: GPRegression's iterative path (no kernel of the port: the Gram
+# slabs and their contraction are PyTorch ops).
+# ---------------------------------------------------------------------------
+
+# benchmarks/exp_r15_train500k.py's recipe: x ~ U[0, 8]², y = sin x₀ ·
+# cos 0.7x₁ + 0.1ε, RBF (ARD) lengthscale 0.8, noise 0.3, rank-128
+# pivoted-Cholesky whitening, 8 probes, 24 Lanczos steps, cg_tol 1e-5, 200
+# iterations; its NLML in CG segments of 8 with one probe chunk of 8, its
+# training steps at lr 0.05 with probe-gradient chunks of 4.
+GP_ITER = dict(precond_rank=128, num_probes=8, lanczos_iters=24, cg_tol=1e-5, cg_iters=200)
+GP_ITER_NLML = dict(cg_segment_iters=8, probe_chunk=8)
+GP_ITER_TRAIN = dict(learning_rate=0.05, cg_segment_iters=8, probe_grad_chunk=4)
+# gp40k_matfree: the recipe at benchmarks/RESULTS_r14.md §2's n and chunk,
+# against the float64 Cholesky model on the card; gp500k_matfree: the recipe
+# at full size (matvec_chunk "auto": 536 rows).
+GP_ITER_CONFIGS = {"gp40k_matfree": dict(n=40_000, matvec_chunk=2048),
+                   "gp500k_matfree": dict(n=500_000, matvec_chunk="auto")}
+GP40K_TRAIN = dict(optimizer="adam", max_iters=5, learning_rate=0.05)
+GP40K_SEGMENTED_STEPS = 3
+GP40K_MEAN_POINTS, GP40K_VAR_POINTS = 1024, 256
+# gp500k_matfree's cuts (PERF.md §4), from tools/gp_iter_probe.py on an
+# H100: an apply at n = 500k takes 7.66 s and the recipe's NLML 476.9 s (64
+# CG iterations), over phase 13's 300 s, so the NLML runs at 262,144 (an
+# apply 2.04 s); an optimize_segmented step took 120.3 s at 262,144, over
+# the 60 s a step may take here (~450 s at 500k by the same count of
+# applies), so the step runs at 131,072 (26.3 s).
+GP500K_NLML_N = 262_144
+GP_ITER_TRAIN_N, GP_ITER_TRAIN_STEPS = 131_072, 1
+GP_ITER_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                                 "gp_iterative_reference_f64.json")
+# The card's float64 run against the JAX package's at the reference's size,
+# same probes, cg_tol 1e-10: rounding only.
+GP_ITER_F64_RTOL = 1e-8
+# gp40k's float32 figures against the float64 Cholesky model, relative (the
+# gradient, means and variances to their largest entry).  About three times
+# the gaps measured on an H100 (PERF.md §2): the segmented NLMLs 9.90e-5 and
+# 9.91e-5, the loss 2.70e-4, the gradient 6.12e-4, the means 4.58e-5, the
+# variances 2.36e-3.  The probes are seeded, so each gap repeats run to run.
+GP40K_RTOL = {"nlml_fused": 3e-4, "nlml_separate": 3e-4, "loss": 8e-4, "grad": 2e-3, "mean": 1.5e-4, "var": 7e-3}
+# mixed16 against plain, relative (the JAX package's test).
+GP_MIXED16_RTOL = 1e-3
+# One float32 apply at n = 500k against float64 rows, relative to the
+# largest: three times the 1.61e-6 measured on an H100 (PERF.md §2).
+GP500K_APPLY_RTOL = 5e-6
+
+
+def gp_iter_data(n: int, seed: int = 0):
+    """The recipe's data (float32), drawn as the JAX script draws it."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 8, size=(n, 2)).astype(np.float32)
+    y = (np.sin(x[:, 0]) * np.cos(0.7 * x[:, 1]) + 0.1 * rng.standard_normal(n)).astype(np.float32)
+    return x, y
+
+
+def gp_iter_test_points(count: int, seed: int = 1):
+    return np.random.default_rng(seed).uniform(0, 8, size=(count, 2)).astype(np.float32)
+
+
+def gp_iter_model(x, y, dtype, device, **overrides):
+    import gp_grief_tpu_torch as gpt
+
+    kern = gpt.make_kernel("rbf", lengthscale=0.8, input_dim=2, dtype=dtype, device=device)
+    return gpt.GPRegression(x, y, kern, noise_var=0.3, solver="iterative", dtype=dtype, device=device,
+                            **{**GP_ITER, **overrides})
+
+
+def gram_apply_bound_ms(n: int, B: int, d: int = 2) -> float:
+    """The least time one apply of the matrix-free Gram could take: n² entries,
+    each 2d flops of distance, ~8 more (scale, clamp, snap, the exp as one,
+    the variance) and 2B of contraction, at the FP32 rate (TF32 is off).
+    Its bytes (x, vv and the output, once each) are under 0.1% of that."""
+    return n * n * (2 * d + 8 + 2 * B) / H100_FLOPS["fp32"] * 1e3
+
+
+class BusySampler:
+    """The card's busy share over a run, from NVML: ``nvidia-smi`` samples
+    ``utilization.gpu`` (the share of each sample period in which a kernel
+    ran) every 100 ms while the ``with`` block runs.  ``torch.profiler``'s
+    post-processing costs about 0.65 ms per kernel on the card's host, and a
+    gp40k Adam step launches ~23,000 (PERF.md §6), so phase 13 takes
+    device time this way; ``busy`` is None if no sample came."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=utilization.gpu", "--format=csv,noheader,nounits", "-i", "0", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out = self.proc.communicate(timeout=30)[0]
+        vals = [float(v) for v in out.split() if v.replace(".", "", 1).isdigit()]
+        self.busy = float(np.mean(vals)) / 100.0 if vals else None
+        self.samples = len(vals)
+        return False
+
+
+def run_measured(fn):
+    """``fn()`` once: its result, wall (s), peak memory (GB), and the card's
+    busy share (:class:`BusySampler`) with the device time and idle share it
+    gives."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with BusySampler() as busy:
+        out, wall = timed(fn)
+    stats = {"wall_s": wall, "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "nvml_samples": busy.samples}
+    if busy.busy is not None:
+        stats.update(device_s=busy.busy * wall, idle_share=1.0 - busy.busy)
+    return out, stats
+
+
+def rel_err(got, want) -> float:
+    import torch
+
+    # Lists go through NumPy: torch.as_tensor would make them float32.
+    got, want = (t.detach().double().cpu() if isinstance(t, torch.Tensor)
+                 else torch.as_tensor(np.asarray(t, dtype=np.float64)) for t in (got, want))
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def chol_exact(model, x_star=None, n_var: int = 0, grad: bool = False, block: int = 2048) -> dict:
+    """A float64 ``GPRegression``'s exact answer on the card from one Cholesky
+    factor of its ``(n, n)`` Gram, built in row blocks: the NLML; with
+    ``grad``, its gradient ``½ tr((K̃⁻¹ − ααᵀ) ∂K̃/∂θ)`` in the flat leaf order,
+    summed over row blocks of ``K̃⁻¹`` from ``cholesky_inverse`` (autograd
+    through the factor would keep several more n² buffers); with ``x_star``,
+    the predictive means there and the variances at its first ``n_var``
+    points."""
+    import torch
+    from gp_grief_tpu_torch.models.gp_regression import _cov_any
+
+    x, y, kern = model.x, model.y, model.kernel
+    n = x.shape[0]
+    out = {}
+    with torch.no_grad():
+        sigma2 = torch.exp(model.log_noise)
+        K = torch.empty((n, n), dtype=x.dtype, device=x.device)
+        for s in range(0, n, block):
+            K[s : s + block] = _cov_any(kern, x[s : s + block], x)
+        K.diagonal().add_(sigma2)
+        L = torch.linalg.cholesky(K)
+        del K
+        alpha = torch.cholesky_solve(y[:, None], L)[:, 0]
+        out["nlml"] = float(0.5 * (torch.dot(y, alpha) + 2.0 * torch.log(torch.diagonal(L)).sum()
+                                   + n * np.log(2.0 * np.pi)))
+        if x_star is not None:
+            xs = torch.as_tensor(x_star, dtype=x.dtype, device=x.device)
+            Ks = _cov_any(kern, xs, x)
+            out["mean"] = (Ks @ alpha).cpu()
+            A = torch.linalg.solve_triangular(L, Ks[:n_var].T, upper=False)
+            prior = torch.exp(kern.log_variance)
+            out["var"] = torch.clamp_min(prior - torch.sum(A * A, dim=0), 0.0).cpu()
+            del Ks, A
+        if grad:
+            W = torch.cholesky_inverse(L)
+            del L
+            W.addr_(alpha, alpha, alpha=-1.0)  # K̃⁻¹ − ααᵀ
+            trace_w = float(torch.diagonal(W).sum())
+    if grad:
+        model.zero_grad()
+        for s in range(0, n, block):
+            (0.5 * torch.sum(W[s : s + block] * _cov_any(kern, x[s : s + block], x))).backward()
+        with torch.no_grad():
+            model.log_noise.grad = 0.5 * sigma2 * trace_w  # ∂K̃/∂log σ² = σ²I
+        out["grad"] = torch.cat([p.grad.reshape(-1).double() for _, p in model._leaves()]).cpu()
+        del W
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_gp_iter_f64(reference: dict) -> dict:
+    """The card's float64 run of the recipe at tools/gp_iterative_reference_f64.json's
+    size, with the JAX package's NumPy probes in the same call order: the
+    segmented NLML, ``_loss`` and its gradient, one ``optimize_segmented``
+    step, then predictions; each held to the JAX package's value."""
+    import torch
+
+    r = reference
+    x, y = gp_iter_data(r["n"])
+    model = gp_iter_model(x.astype(np.float64), y.astype(np.float64), torch.float64, DEVICE,
+                          matvec_chunk=r["matvec_chunk"], cg_tol=r["cg_tol"], cg_iters=r["cg_iters"])
+    check(model._param_leaf_names() == r["leaves"], "gp_iter f64: parameter order differs from the reference")
+    xs = gp_iter_test_points(r["test_points"]).astype(np.float64)
+
+    def run():
+        nlml_seg = -model.log_likelihood_iterative_segmented(**GP_ITER_NLML)
+        loss, grad = flat_grad(model, model._loss)
+        model.optimize_segmented(max_iters=1, **GP_ITER_TRAIN)
+        mean, var = model.predict(xs)
+        return nlml_seg, loss, grad, model.parameters, mean, var
+
+    (nlml_seg, loss, grad, params, mean, var), t = timed(lambda: with_numpy_probes(run))
+    errs = {"nlml_segmented": abs(nlml_seg - r["nlml_segmented"]) / abs(r["nlml_segmented"]),
+            "loss": abs(loss - r["loss"]) / abs(r["loss"]), "grad": rel_err(grad, r["grad"]),
+            "params_after_step": rel_err(params, r["params_after_step"]), "mean": rel_err(mean, r["mean"]),
+            "var": rel_err(var, r["var"])}
+    del model
+    torch.cuda.empty_cache()
+    check(max(errs.values()) <= GP_ITER_F64_RTOL, f"gp_iter f64 vs the JAX package: {errs}")
+    return {"size": {k: r[k] for k in ("n", "matvec_chunk", "cg_tol", "cg_iters")}, "rel_err": errs,
+            "tol": GP_ITER_F64_RTOL, "s": t}
+
+
+def train_twice(model, start, run):
+    """``run(stats)`` from the same start twice, the second run measured
+    (:func:`run_measured`): the first run's result, whether the two agree
+    bit for bit, the per-step rows and the second run's figures."""
+    import torch
+
+    runs = []
+    for _ in range(2):
+        with torch.no_grad():
+            for (_, p), v in zip(model._leaves(), start):
+                p.copy_(v)
+        with StepStats({}, False) as stats:
+            res, measured = run_measured(lambda: run(stats))
+        runs.append((res, [p.detach().clone() for _, p in model._leaves()], stats.rows, measured))
+    (r0, p0, rows, _), (r1, p1, _, measured) = runs
+    measured.pop("peak_gb")  # StepStats resets the peak each step: the rows carry it
+    return r0, np.array_equal(r0.losses, r1.losses) and same_bits(p0, p1), rows, measured
+
+
+def phase_gp40k(card: str) -> dict:
+    """gp40k_matfree: the recipe at n = 40,000, float32 and matrix-free,
+    against the float64 Cholesky model on the card (a 12.8 GB Gram)."""
+    import torch
+
+    cfg = GP_ITER_CONFIGS["gp40k_matfree"]
+    n, chunk = cfg["n"], cfg["matvec_chunk"]
+    x, y = gp_iter_data(n)
+    xs = gp_iter_test_points(GP40K_MEAN_POINTS)
+    m64 = gp_iter_model(x, y, torch.float64, DEVICE, matvec_chunk=chunk)
+    exact, t_exact = timed(lambda: chol_exact(m64, xs, GP40K_VAR_POINTS, grad=True))
+    model = gp_iter_model(x, y, torch.float32, DEVICE, matvec_chunk=chunk)
+    start = [p.detach().clone() for _, p in model._leaves()]
+    out = {"phase": "gp_iter", "config": "gp40k_matfree", "n": n, "matvec_chunk": chunk, **GP_ITER,
+           "nlml_chol_f64": exact["nlml"], "s_chol_f64_with_grad": t_exact}
+
+    nl_fused, st = run_measured(lambda: -model.log_likelihood_iterative_segmented(**GP_ITER_NLML))
+    out["nlml_fused"] = {"nlml": nl_fused, "cg_iterations": model.cg_iterations, **st}
+    nl_sep, st = run_measured(lambda: -model.log_likelihood_iterative_segmented(fuse_probes=False, **GP_ITER_NLML))
+    out["nlml_separate"] = {"nlml": nl_sep, "cg_iterations": model.cg_iterations, **st}
+    (loss, grad), st = run_measured(lambda: flat_grad(model, model._loss))
+    out["loss_and_grad"] = {"loss": loss, "grad": grad.tolist(), "grad_f64": exact["grad"].tolist(), **st}
+    (mean, (mean_v, var)), st = run_measured(
+        lambda: (model.predict(xs, compute_var=False), model.predict(xs[:GP40K_VAR_POINTS])))
+    out["predict"] = {"mean_points": GP40K_MEAN_POINTS, "var_points": GP40K_VAR_POINTS, **st}
+    with torch.no_grad():
+        vv = torch.randn((1 + GP_ITER["num_probes"], n), device=DEVICE,
+                         generator=torch.Generator(device=DEVICE).manual_seed(2))
+        mv, mv_fast = model._gram_op(chunk), model._gram_op(chunk, "default")
+        out["apply"] = {"B": vv.shape[0], "device_ms": device_ms(lambda: mv(vv), reps=3, warmup=1),
+                        "ms": cuda_ms(lambda: mv(vv), reps=5, warmup=1),
+                        "ms_default_precision": cuda_ms(lambda: mv_fast(vv), reps=5, warmup=1),
+                        "bound_ms": gram_apply_bound_ms(n, vv.shape[0]), "bound_by": "operations"}
+        del vv, mv, mv_fast
+
+    m16 = gp_iter_model(x, y, torch.float32, DEVICE, matvec_chunk=chunk, mixed16=True)
+    nl16, st = run_measured(lambda: -m16.log_likelihood_iterative_segmented(**GP_ITER_NLML))
+    out["mixed16"] = {"nlml": nl16, "cg_iterations": m16.cg_iterations, **st}
+    del m16
+
+    gaps = {"nlml_fused": abs(nl_fused - exact["nlml"]) / abs(exact["nlml"]),
+            "nlml_separate": abs(nl_sep - exact["nlml"]) / abs(exact["nlml"]),
+            "loss": abs(loss - exact["nlml"]) / abs(exact["nlml"]), "grad": rel_err(grad, exact["grad"]),
+            "mean": rel_err(mean, exact["mean"]), "mean_at_var_points": rel_err(mean_v, exact["mean"][:GP40K_VAR_POINTS]),
+            "var": rel_err(var, exact["var"])}
+    mixed_gap = abs(nl16 - nl_fused) / abs(nl_fused)
+    out.update(gaps_to_chol_f64=gaps, gap_tol=GP40K_RTOL, mixed16_gap=mixed_gap, mixed16_tol=GP_MIXED16_RTOL)
+
+    # Training: 5 Adam steps of optimize (the monolithic BBMM loss), then 3 of
+    # optimize_segmented, each twice from the same start, the Cholesky NLML
+    # lower after.
+    def after(params):
+        with torch.no_grad():
+            for (_, p), v in zip(m64._leaves(), params):
+                p.copy_(v.double())
+        return chol_exact(m64)["nlml"]
+
+    r, identical, steps, st = train_twice(
+        model, start, lambda stats: model.optimize(
+            callback=lambda it, value, gnorm: stats.step(loss=value, grad_norm=gnorm), **GP40K_TRAIN))
+    out["optimize"] = {**GP40K_TRAIN, "losses": r.losses.tolist(), "runs_identical": identical,
+                       "nlml_chol_f64_after": after([p.detach() for _, p in model._leaves()]), "steps": steps,
+                       "second_run": st}
+    r, identical_s, steps, st = train_twice(
+        model, start, lambda stats: model.optimize_segmented(
+            max_iters=GP40K_SEGMENTED_STEPS, callback=lambda it, value, info: stats.step(surrogate=value, **info),
+            **GP_ITER_TRAIN))
+    out["optimize_segmented"] = {"max_iters": GP40K_SEGMENTED_STEPS, **GP_ITER_TRAIN, "surrogate": r.losses.tolist(),
+                                 "runs_identical": identical_s,
+                                 "nlml_chol_f64_after": after([p.detach() for _, p in model._leaves()]),
+                                 "steps": steps, "second_run": st}
+    emit({**out, "card": card})
+    check(all(np.isfinite(v) for v in (nl_fused, nl_sep, loss, nl16)) and bool(torch.isfinite(grad).all()),
+          "gp40k: a non-finite NLML or gradient")
+    check(out["nlml_fused"]["cg_iterations"] < GP_ITER["cg_iters"],
+          "gp40k: the fused NLML's CG used its whole budget without meeting cg_tol")
+    for key, tol in GP40K_RTOL.items():
+        check(gaps[key] <= tol, f"gp40k: float32 {key} off the float64 Cholesky model by {gaps[key]:.3e}")
+    check(mixed_gap <= GP_MIXED16_RTOL, f"gp40k: mixed16 NLML off the plain one by {mixed_gap:.3e}")
+    for what in ("optimize", "optimize_segmented"):
+        check(out[what]["runs_identical"], f"gp40k: two {what} runs from the same start differ")
+        check(out[what]["nlml_chol_f64_after"] < exact["nlml"],
+              f"gp40k: {what} raised the Cholesky NLML ({exact['nlml']} -> {out[what]['nlml_chol_f64_after']})")
+    del model, m64
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_gp500k(card: str) -> dict:
+    """gp500k_matfree: the recipe at n = 500,000.  One float32 apply at B = 9
+    against float64 rows computed directly for 256 sampled rows, its time
+    and busy share beside the bound; then one segmented NLML at
+    GP500K_NLML_N, finite, its CG within budget (it stops only on cg_tol or
+    on the budget)."""
+    import copy
+
+    import torch
+    from gp_grief_tpu_torch.models.gp_regression import _cov_any
+
+    cfg = GP_ITER_CONFIGS["gp500k_matfree"]
+    n = cfg["n"]
+    x, y = gp_iter_data(n)
+    model = gp_iter_model(x, y, torch.float32, DEVICE, matvec_chunk=cfg["matvec_chunk"])
+    chunk = model._iter_opts["matvec_chunk"]
+    B = 1 + GP_ITER["num_probes"]
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    vv = torch.randn((B, n), device=DEVICE, generator=gen)
+    rows = torch.randperm(n, device=DEVICE, generator=gen)[:256]
+    mv = model._gram_op(chunk)
+    with torch.no_grad():
+        got, st = run_measured(lambda: mv(vv))
+        got = got[:, rows]
+        x64, v64, k64 = model.x.double(), vv.double(), copy.deepcopy(model.kernel).double()
+        want = v64 @ _cov_any(k64, x64[rows], x64).T + torch.exp(model.log_noise).double() * v64[:, rows]
+    apply_err = rel_err(got, want)
+    del model, mv, x64, v64, want
+    torch.cuda.empty_cache()
+    out = {"phase": "gp_iter", "config": "gp500k_matfree", "n": n, "matvec_chunk": chunk, **GP_ITER,
+           "apply": {"B": B, **st, "bound_ms": gram_apply_bound_ms(n, B), "bound_by": "operations",
+                     "rows_checked": 256, "rel_err_vs_f64": apply_err, "tol": GP500K_APPLY_RTOL}}
+    x, y = gp_iter_data(GP500K_NLML_N)
+    model = gp_iter_model(x, y, torch.float32, DEVICE, matvec_chunk=cfg["matvec_chunk"])
+    nlml, st = run_measured(lambda: -model.log_likelihood_iterative_segmented(**GP_ITER_NLML))
+    out["nlml_fused"] = {"n": GP500K_NLML_N, "matvec_chunk": model._iter_opts["matvec_chunk"], "nlml": nlml,
+                         "cg_iterations": model.cg_iterations, **st}
+    emit({**out, "card": card})
+    check(apply_err <= GP500K_APPLY_RTOL, f"gp500k: the float32 apply is off float64 rows by {apply_err:.3e}")
+    check(np.isfinite(nlml), "gp500k: the NLML is not finite")
+    check(model.cg_iterations < GP_ITER["cg_iters"],
+          f"gp500k: CG used its whole budget ({model.cg_iterations} iterations) without meeting cg_tol")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_gp_iter_train(card: str, n: int) -> dict:
+    """The recipe's ``optimize_segmented`` steps at ``n`` (matvec_chunk
+    "auto"): each step's solve and gradient wall and CG iterations, the
+    run's busy share; the steps finite and each solve within the CG budget.
+    Whether they lower the NLML is held at gp40k, against the Cholesky
+    model."""
+    import torch
+
+    x, y = gp_iter_data(n)
+    model = gp_iter_model(x, y, torch.float32, DEVICE, matvec_chunk="auto")
+    with StepStats({}, False) as stats:
+        res, st = run_measured(lambda: model.optimize_segmented(
+            max_iters=GP_ITER_TRAIN_STEPS, callback=lambda it, value, info: stats.step(surrogate=value, **info),
+            **GP_ITER_TRAIN))
+    st.pop("peak_gb")  # StepStats resets the peak each step: the rows carry it
+    out = {"phase": "gp_iter_train", "n": n, "matvec_chunk": model._iter_opts["matvec_chunk"], **GP_ITER,
+           **GP_ITER_TRAIN, "max_iters": GP_ITER_TRAIN_STEPS, "surrogate": res.losses.tolist(), "steps": stats.rows,
+           **st}
+    emit({**out, "card": card})
+    check(np.all(np.isfinite(res.losses)) and all(bool(torch.isfinite(p).all()) for _, p in model._leaves()),
+          f"gp_iter_train at n = {n}: non-finite")
+    check(all(r["cg_iterations"] < GP_ITER["cg_iters"] for r in stats.rows),
+          f"gp_iter_train at n = {n}: a step's solve used the whole CG budget")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_gp_iter(card: str) -> None:
+    """Phase 13: GPRegression's iterative path (see the module docstring)."""
+    ref = phase_gp_iter_f64(json.load(open(GP_ITER_REFERENCE)))
+    emit({"phase": "gp_iter_f64", **ref, "card": card})
+    phase_gp40k(card)
+    phase_gp500k(card)
+    phase_gp_iter_train(card, GP_ITER_TRAIN_N)
+
+
 def main() -> int:
     import torch
 
@@ -1776,6 +2188,10 @@ def main() -> int:
         entry["training_launches"] = fn.launches
     for fn in (kron_matvec_slab, kron_matvec_fused, interp_wt, wtw_stencil):
         check(fn.launches > 0, f"the training phases never launched {fn.__name__}")
+
+    # Phase 13: GPRegression's iterative path, which launches no kernel of the
+    # port (its Gram slabs are PyTorch ops).
+    phase_gp_iter(card)
 
     print(card, flush=True)
     emit({"kernels": entries})

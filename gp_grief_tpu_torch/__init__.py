@@ -7,7 +7,11 @@ Four paths so far:
   (kernel K1) → ΦᵀΦ / Φᵀy → O(p³) NLML → ``optimize`` → ``predict``; and its
   iterative NLML, CG + SLQ on the n×n operator through one fused host driver
   (``ops.fused``);
-* the exact GP ``GPRegression`` by Cholesky (the parity oracle);
+* the exact GP ``GPRegression``: by Cholesky (the parity oracle), or by
+  CG + SLQ with pivoted-Cholesky whitening on a dense or a matrix-free Gram
+  (slabs rebuilt per apply: no ``(n, n)`` buffer), with BBMM training and
+  matrix-free predict; its kernel a stationary or an ``extra`` kernel
+  (``RatQuad``, ``Periodic``, …, ``Sum``/``Product``);
 * the exact grid GP ``GPKroneckerRegression``: Schur (eigen) or CG solves of
   ``⊗K_d + σ²I``, the CG matvec on kernels K2/K3, deflation preconditioning,
   mixed-precision refinement, chunked predict;
@@ -40,6 +44,9 @@ print(grid_gp.log_likelihood())
 
 from gp_grief_tpu_torch import convert, kernels, models, ops, optimize
 from gp_grief_tpu_torch.grid import InducingGrid
+from gp_grief_tpu_torch.kernels.extra import (
+    Constant, Cosine, Linear, Periodic, Product, RatQuad, Sum, White, make_periodic, make_ratquad,
+)
 from gp_grief_tpu_torch.kernels.stationary import make_kernel
 from gp_grief_tpu_torch.models.gp_grief import GPGriefModel
 from gp_grief_tpu_torch.models.gp_kron import GPKroneckerRegression
@@ -47,6 +54,7 @@ from gp_grief_tpu_torch.models.gp_regression import GPRegression
 from gp_grief_tpu_torch.models.gp_ski import GPSKIRegression
 
 __all__ = [
-    "InducingGrid", "make_kernel", "GPGriefModel", "GPKroneckerRegression", "GPRegression", "GPSKIRegression",
+    "InducingGrid", "make_kernel", "make_ratquad", "make_periodic", "RatQuad", "Periodic", "Cosine", "White",
+    "Constant", "Linear", "Sum", "Product", "GPGriefModel", "GPKroneckerRegression", "GPRegression", "GPSKIRegression",
     "convert", "kernels", "models", "ops", "optimize",
 ]

@@ -4,7 +4,8 @@ The JAX package's parameters are a pytree whose leaves have dotted names
 (``kernels.0.log_lengthscale``, …, ``log_noise``, ``log_w`` for GP-GRIEF;
 the same without ``log_w`` for ``GPKroneckerRegression`` and
 ``GPSKIRegression``; ``kernel.log_lengthscale`` or
-``kernel.0.log_lengthscale``, …, ``log_noise`` for ``GPRegression``); the port's
+``kernel.0.log_lengthscale``, …, ``log_noise`` for ``GPRegression``, whose
+kernel may also be an ``extra`` kernel: ``kernel.k1.k2.log_period``); the port's
 ``state_dict()`` uses the same names.  These helpers take plain NumPy arrays,
 so this module needs no JAX.
 """
@@ -21,7 +22,10 @@ from gp_grief_tpu_torch.kernels.grief import GriefBasis
 
 __all__ = ["params_from_jax", "basis_from_jax"]
 
-_LEAF = re.compile(r"^((kernels\.\d+|kernel(\.\d+)?)\.(log_lengthscale|log_variance)|log_noise|log_w)$")
+_LEAF = re.compile(
+    r"^((kernels\.\d+|kernel(\.\d+)?)(\.k[12])*\.(log_lengthscale|log_variances?|log_alpha|log_period)"
+    r"|log_noise|log_w)$"
+)
 
 
 def params_from_jax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:

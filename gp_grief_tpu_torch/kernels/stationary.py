@@ -134,7 +134,11 @@ def _sq_dist(xs: torch.Tensor, zs: torch.Tensor, same: bool) -> torch.Tensor:
 def _cov_scaled(kind: str, var: torch.Tensor, xs: torch.Tensor, zs: torch.Tensor, same: bool):
     """``var · g(r)`` from lengthscale-divided inputs; ``var`` broadcasts
     against the ``(..., n, m)`` output."""
-    r2 = _sq_dist(xs, zs, same)
+    return _from_r2(kind, var, _sq_dist(xs, zs, same))
+
+
+def _from_r2(kind: str, var: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
+    """``var · g(r)`` from the squared scaled distances ``r2``."""
     if kind == "rbf":
         return var * torch.exp(-0.5 * r2)
     # Matérn needs r; sqrt(0) has an infinite gradient, so guard the zeros and

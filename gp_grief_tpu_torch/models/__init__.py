@@ -1,6 +1,6 @@
 """Models: ``GPGriefModel`` (closed form and the iterative NLML), the exact GP
-``GPRegression`` (its Cholesky path), the grid GP ``GPKroneckerRegression`` and
-SKI's ``GPSKIRegression`` (its log-likelihood and predict)."""
+``GPRegression`` (Cholesky, and CG + SLQ on a dense or matrix-free Gram), the
+grid GP ``GPKroneckerRegression`` and SKI's ``GPSKIRegression``."""
 
 from gp_grief_tpu_torch.models.base import (
     BaseModel,

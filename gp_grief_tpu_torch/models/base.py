@@ -73,10 +73,19 @@ def _matches(name: str, pattern: str) -> bool:
     return name == pattern or name.endswith("." + pattern)
 
 
-def _jax_order(name: str):
+def _jax_order(name: str, root: nn.Module):
     """Sort key reproducing ``ravel_pytree``'s leaf order: dict keys sorted,
-    list indices numeric (``kernels.2`` before ``kernels.10``)."""
-    return tuple((0, int(s), "") if s.isdigit() else (1, 0, s) for s in name.split("."))
+    list indices numeric (``kernels.2`` before ``kernels.10``), a kernel
+    dataclass's fields in declaration order (the module's ``jax_fields``)."""
+    key, mod = [], root
+    for s in name.split("."):
+        fields = getattr(mod, "jax_fields", ())
+        if s.isdigit():
+            key.append((0, int(s), ""))
+        else:
+            key.append((1, fields.index(s) if s in fields else 0, s))
+        mod = getattr(mod, s, None)
+    return tuple(key)
 
 
 class BaseModel(nn.Module):
@@ -97,7 +106,7 @@ class BaseModel(nn.Module):
 
     def _leaves(self):
         """``(name, parameter)`` pairs in the JAX package's flat order."""
-        return sorted(self.named_parameters(), key=lambda kv: _jax_order(kv[0]))
+        return sorted(self.named_parameters(), key=lambda kv: _jax_order(kv[0], self))
 
     @property
     def parameters(self) -> np.ndarray:

@@ -22,6 +22,8 @@ from gp_grief_tpu_torch.ops.precond import (
     lowrank_spectral_factor,
     lowrank_sqrt_ops,
     lowrank_sqrt_ops_from_factor,
+    pivoted_cholesky,
+    pivoted_cholesky_matfree,
 )
 # ``ops.lanczos`` stays the module (its ``rademacher`` is the probes' one draw).
 from gp_grief_tpu_torch.ops.lanczos import lanczos_batched, slq_logdet
@@ -33,7 +35,7 @@ __all__ = [
     "kron_diag", "kron_eigh", "kron_expand", "kron_logdet_from_eigs", "kron_matmat", "kron_matvec",
     "kron_shapes", "kron_solve_schur", "group_factors", "kron_matvec_fast",
     "kron_deflation_preconditioner", "kron_deflation_sqrt_ops", "lowrank_preconditioner",
-    "lowrank_spectral_factor", "lowrank_sqrt_ops", "lowrank_sqrt_ops_from_factor",
-    "lanczos_batched", "slq_logdet",
+    "lowrank_spectral_factor", "lowrank_sqrt_ops", "lowrank_sqrt_ops_from_factor", "pivoted_cholesky",
+    "pivoted_cholesky_matfree", "lanczos_batched", "slq_logdet",
     "cholesky", "logdet_from_chol", "solve_chol", "stable_cholesky", "top_p_kron_eigs",
 ]

@@ -13,8 +13,10 @@ and a p-entry gather/scatter on the eigen-lattice; ``Q_p`` is never formed.
 The low-rank preconditioner of SKI's data-space solver (an explicit skinny
 basis ``U``; :func:`lowrank_spectral_factor`, :func:`lowrank_sqrt_ops`) is
 here too, with :func:`check_whitening`, which holds its ``M^{-1/2}`` to
-being SPD before a solver treats ``M^{-1/2} A M^{-1/2}`` as whitened; the
-pivoted-Cholesky one comes with the matrix-free exact GP.
+being SPD before a solver treats ``M^{-1/2} A M^{-1/2}`` as whitened.  The
+exact GP's factor is the partial pivoted Cholesky (:func:`pivoted_cholesky`,
+:func:`pivoted_cholesky_matfree`: ``K ≈ LLᵀ`` from ``rank`` kernel rows),
+whose ``M = LLᵀ + σ²I`` whitens through :func:`lowrank_sqrt_ops_from_factor`.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ from gp_grief_tpu_torch.ops.solve import solve_chol, stable_cholesky
 
 __all__ = [
     "check_whitening", "kron_deflation_preconditioner", "kron_deflation_sqrt_ops", "lowrank_preconditioner",
-    "lowrank_spectral_factor", "lowrank_sqrt_ops", "lowrank_sqrt_ops_from_factor",
+    "lowrank_spectral_factor", "lowrank_sqrt_ops", "lowrank_sqrt_ops_from_factor", "pivoted_cholesky",
+    "pivoted_cholesky_matfree",
 ]
 
 
@@ -196,3 +199,41 @@ def lowrank_sqrt_ops_from_factor(F: torch.Tensor, sigma2, *, weights: torch.Tens
     (non-orthonormal) skinny factor, through :func:`lowrank_spectral_factor`."""
     U, lam = lowrank_spectral_factor(F, weights=weights)
     return lowrank_sqrt_ops(U, lam, sigma2, layout=layout)
+
+
+def pivoted_cholesky(K: torch.Tensor, rank: int) -> torch.Tensor:
+    """Partial pivoted Cholesky of a dense SPD Gram: ``K ≈ L Lᵀ`` with ``L (n,
+    rank)`` built greedily on the largest remaining diagonal (the
+    GPyTorch preconditioner: ``M = LLᵀ + σ²I`` holds a smooth kernel's
+    dominant spectrum in a few columns).  See :func:`pivoted_cholesky_matfree`."""
+    return pivoted_cholesky_matfree(lambda piv: K.index_select(0, piv.reshape(1))[0], torch.diagonal(K), rank)
+
+
+def pivoted_cholesky_matfree(row_fn: Callable[[torch.Tensor], torch.Tensor], diag: torch.Tensor,
+                             rank: int) -> torch.Tensor:
+    """:func:`pivoted_cholesky` from row access only, with no ``(n, n)`` Gram:
+    ``row_fn(i) -> K[i, :]`` for a 0-d index tensor ``i`` (``K`` symmetric,
+    so rows are columns) and ``diag = diag(K)``.
+
+    ``rank`` steps, none reading the device from the host: an argmax (the
+    first maximum, as ``jnp.argmax`` takes it: a stationary kernel's diagonal
+    ties everywhere and step 0 picks index 0), one kernel row, a rank-1
+    diagonal update.  ``L`` is written row by row into a ``(rank, n)``
+    buffer; an exhausted diagonal (``rank`` past the numerical rank) gives a
+    zero column.  Returns ``L (n, rank)``."""
+    n = diag.shape[0]
+    rank = int(min(rank, n))
+    Lrows = torch.zeros((rank, n), dtype=diag.dtype, device=diag.device)
+    d = diag
+    for j in range(rank):
+        piv = torch.argmax(d).reshape(1)
+        # The Schur-complement column at the pivot, K[:, piv] − L L[piv, :]ᵀ,
+        # in the diagonal's dtype whatever the kernel's.
+        col = row_fn(piv[0]).to(diag.dtype) - Lrows[:j].T @ Lrows[:j].index_select(1, piv)[:, 0]
+        dpiv = d.index_select(0, piv)[0]
+        pos = dpiv > 0
+        scale = torch.where(pos, torch.rsqrt(torch.where(pos, dpiv, torch.ones_like(dpiv))), torch.zeros_like(dpiv))
+        lj = col * scale
+        d = torch.clamp_min(d - lj * lj, 0.0)
+        Lrows[j] = lj
+    return Lrows.T

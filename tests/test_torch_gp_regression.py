@@ -94,21 +94,20 @@ def test_params_from_jax_round_trip(kind):
     np.testing.assert_array_equal(tm.parameters, jm.parameters)
     assert tm.log_likelihood() == pytest.approx(jm.log_likelihood(), rel=TOL)
     with pytest.raises(KeyError):
-        params_from_jax({"kernel.log_period": np.zeros(())})
+        params_from_jax({"kernel.log_periods": np.zeros(())})
 
 
 def test_iterative_path_raises_not_implemented():
+    # The iterative path is ported (tests/test_torch_gp_iterative.py): it
+    # builds, and the constructor keeps its options; only a bad solver raises.
     x, y, _ = _data()
     k = gpt.make_kernel("rbf")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        gpt.GPRegression(x, y, k, solver="iterative", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        gpt.GPRegression(x, y, k, matvec_chunk=64, device="cpu")
+    assert gpt.GPRegression(x, y, k, solver="iterative", device="cpu").solver == "iterative"
+    assert gpt.GPRegression(x, y, k, matvec_chunk=64, device="cpu")._iter_opts["matvec_chunk"] == 64
     with pytest.raises(ValueError, match="solver"):
         gpt.GPRegression(x, y, k, solver="lu", device="cpu")
-    # The other iterative options are kept as given.
-    m = gpt.GPRegression(x, y, k, num_probes=4, cg_tol=1e-6, mixed16=True, key=7, device="cpu")
-    assert m._iter_opts["num_probes"] == 4 and m._iter_opts["mixed16"] and m._key == 7
+    m = gpt.GPRegression(x, y, k, num_probes=4, cg_tol=1e-6, mixed16=True, seed=7, device="cpu")
+    assert m._iter_opts["num_probes"] == 4 and m._iter_opts["mixed16"] and m.seed == 7
     assert m._iter_opts["matvec_chunk"] == 0  # "auto" at n <= 32768: the dense Gram
 
 
