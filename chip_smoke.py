@@ -39,8 +39,9 @@ non-zero without printing the final line:
 7. grid    — the two grid configurations (GRID_CONFIGS) end to end through
              ``GPKroneckerRegression``: float64 schur NLML against a recorded
              float64 JAX run, float32 CG NLML against float32 schur, the
-             kernel launches during the CG NLML, and predict (mean on 10,000
-             points, variance on 512).
+             kernel launches and the refined solve's exact applies during
+             the CG NLML, and predict (mean on 10,000 points, variance on
+             512).
 8. ski_kernel — K4 (interp_wt) and K5 (wtw_stencil) against their plain
              versions on the card, float32 and float64, at the SKI
              configurations' shapes and one ragged d=3 lattice; two launches
@@ -82,7 +83,8 @@ non-zero without printing the final line:
              gradient, one optimize_segmented step, predict); gp40k_matfree
              in float32 against the float64 Cholesky model on the card (the
              segmented NLML fused and separate, the loss and gradient,
-             predict, mixed16, 5 Adam steps of optimize and 3 of
+             predict, mixed16 (with its exact applies), 5 Adam steps of
+             optimize and 3 of
              optimize_segmented, each twice bit for bit and the Cholesky NLML
              lower after), with wall, device time, idle share, peak memory,
              CG iterations and one apply's device time beside its bound
@@ -90,9 +92,26 @@ non-zero without printing the final line:
              gp500k_matfree (one apply at n = 500k against float64 rows,
              then one segmented NLML at GP500K_NLML_N); optimize_segmented
              at GP_ITER_TRAIN_N (PERF.md §4 gives the cuts).
+14. the rest of the public surface, inside phases 5 and 7:
+    a. gp_web — after uci2m's training: the trained model's basis assembled
+             into Φ (1.9M x 400, ~3 GB) and Φ* (100k test points) through
+             ``kernels.grief.phi`` over ``stats_chunk`` row chunks (K1),
+             ``GPweb`` on Φ, its NLML at the start, 150 Adam steps and
+             predict held to the GRIEF model's own (GP_WEB_RTOL), the rmse
+             to UCI2M_RMSE_MAX; Φ freed before the iterative NLML.
+    c. surface — ``python -m gp_grief_tpu_torch checkgrad`` on the card,
+             a ``save_pytree``/``load_pytree`` round trip of the uci2m model
+             and its Adam state (the NLML bit for bit), a
+             ``utils.profiling.trace`` of one GPweb predict, and
+             ``ops.select_rows_t`` with repeated indices twice, bit for bit.
+    b. kron_segmented — in phase 7, each grid configuration's
+             ``log_likelihood_segmented()`` at full size, twice (bit for
+             bit), held to the float64 Schur NLML at GRID_CG_GAP_RTOL (K3 at
+             grid8x512x512_exact; the chain at grid32x5_mixed).
 
 Then the ``nvidia-smi`` name/power-limit line, one ``{"kernels": [...]}``
-line (K1 launches from phases 4-5 and configs, K2/K3 from phase 7, K4/K5 from
+line (K1 launches from phases 4-5 (14a among them) and configs,
+K2/K3 from phase 7 (14b among them), K4/K5 from
 phase 9's float32 runs, K6-K8 from phase 10; ``training_launches`` from
 phases 11-12; phase 13 launches none) and, last, ``{"ok": true, "device":
 {...}}``.  This script imports no JAX.
@@ -421,6 +440,7 @@ def uci2m_build(xtr, ytr):
 
 
 def phase_uci2m(card: str) -> None:
+    import torch
     from gp_grief_tpu_torch.ops.cuda import phi_fused
 
     xtr, ytr, xte, fte = uci2m_data()
@@ -441,7 +461,165 @@ def phase_uci2m(card: str) -> None:
           "s_build_and_stats": t_build, "s_train_150_steps": t_train, "s_predict_100k": t_pred,
           "card": card})
     check(rmse <= UCI2M_RMSE_MAX, f"uci2m rmse {rmse} > {UCI2M_RMSE_MAX}")
+    web, Phis = phase_gp_web(card, model, res, t_train, xte, fte)
+    phase_surface(card, model, res, web, Phis)
+    del web, Phis
+    torch.cuda.empty_cache()
     phase_uci2m_iterative(card, model)
+
+
+# Phase 14a: GPweb over the trained uci2m model's own basis.  Its start
+# (log_w zeros, the same noise) is that model's start and reweight training
+# leaves the basis alone, so GPweb's 150 Adam steps are the model's own run:
+# the same K1 chunks, the same GEMM shapes and the same O(p³) NLML.  Gaps
+# relative to the model's values (NLML trace, parameters) and to the scale of
+# its predictive mean and variance; on an H100 every gap measured 0 (PERF.md
+# §6), so the limits hold them bit for bit.
+GP_WEB_TRAIN = dict(optimizer="adam", max_iters=150, learning_rate=0.05)
+GP_WEB_RTOL = {"nlml_start": 0.0, "nlml_trace": 0.0, "params": 0.0, "mean": 0.0, "var": 0.0}
+
+
+def phase_gp_web(card: str, model, res, t_train_model: float, xte, fte):
+    """Phase 14a: assemble the uci2m basis's Φ (1.9M x 400) and Φ* (the 100k
+    test points) through the public ``kernels.grief.phi`` over
+    ``stats_chunk`` row chunks (K1), build ``GPweb`` on Φ, hold its NLML at
+    the start, 150 Adam steps and predictions to the GRIEF model's; Φ is
+    freed before returning.  Returns the trained ``GPweb`` and Φ*."""
+    import torch
+
+    import gp_grief_tpu_torch as gpt
+    from gp_grief_tpu_torch.kernels.grief import phi
+    from gp_grief_tpu_torch.models.gp_grief import _to_tensor
+    from gp_grief_tpu_torch.ops.cuda import phi_fused
+
+    chunk, p = model.stats_chunk, model.n_eigs
+
+    def assemble(x):
+        out = torch.empty((x.shape[0], p), dtype=model.x.dtype, device=model.x.device)
+        for s in range(0, x.shape[0], chunk):
+            out[s : s + chunk] = phi(model._basis, model.kernels, model.xg, x[s : s + chunk], dims=model.dims,
+                                     impl=model.phi_impl)
+        return out
+
+    xte_t = _to_tensor(xte, model.x.dtype, model.x.device)
+    mean_m, var_m = model.predict(xte_t)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem_before = torch.cuda.memory_allocated()
+    before = phi_fused.launches
+    with torch.no_grad():
+        Phi, t_phi = timed(lambda: assemble(model.x))
+        Phis, t_phis = timed(lambda: assemble(xte_t))
+    k1 = phi_fused.launches - before
+    web, t_stats = timed(lambda: gpt.GPweb(Phi, model.y, noise_var=0.2, stats_chunk=chunk))
+    phi_gb = Phi.numel() * Phi.element_size() / 1e9
+    del Phi
+    torch.cuda.empty_cache()
+    nlml0 = -web.log_likelihood()
+    rw, t_train = timed(lambda: web.optimize(**GP_WEB_TRAIN))
+    (mean, var), t_pred = timed(lambda: web.predict(Phis))
+    peak = torch.cuda.max_memory_allocated() - mem_before
+    mean_np = mean.cpu().numpy()
+    rmse = float(np.sqrt(np.mean((mean_np - fte) ** 2)))
+    trace_m = np.asarray(res.losses, dtype=np.float64)
+    gaps = {"nlml_start": abs(nlml0 - trace_m[0]) / abs(trace_m[0]),
+            "nlml_trace": float(np.max(np.abs(rw.losses - trace_m) / np.abs(trace_m))),
+            "params": max(rel_err(web.log_w, model.log_w), rel_err(web.log_noise, model.log_noise)),
+            "mean": rel_err(mean, mean_m), "var": rel_err(var, var_m)}
+    identical = {"nlml_trace": bool(np.array_equal(rw.losses, trace_m)),
+                 "params": bool(torch.equal(web.log_w, model.log_w) and torch.equal(web.log_noise, model.log_noise)),
+                 "mean": bool(torch.equal(mean, mean_m)), "var": bool(torch.equal(var, var_m))}
+    emit({"phase": "gp_web", "n": int(model.x.shape[0]), "p": p, "n_test": int(Phis.shape[0]), "stats_chunk": chunk,
+          **GP_WEB_TRAIN, "phi_gb": phi_gb, "k1_launches": k1, "nlml_start": nlml0,
+          "nlml": [float(rw.losses[0]), float(rw.losses[-1])], "rmse": rmse, "rmse_max": UCI2M_RMSE_MAX,
+          "gaps_to_grief": gaps, "gap_tol": GP_WEB_RTOL, "bit_identical_to_grief": identical,
+          "s": {"phi_assembly": t_phi, "phi_star_assembly": t_phis, "stats": t_stats, "train_150_steps": t_train,
+                "grief_train_150_steps": t_train_model, "predict_100k": t_pred},
+          "peak_gb_above_model": peak / 1e9, "card": card})
+    check(k1 >= -(-int(model.x.shape[0]) // chunk) + 1, f"gp_web: Φ and Φ* launched K1 only {k1} times")
+    check(rw.iterations == GP_WEB_TRAIN["max_iters"], f"gp_web training stopped at step {rw.iterations}")
+    check(bool(torch.isfinite(mean).all() and torch.isfinite(var).all() and (var > 0).all()),
+          "gp_web predict: non-finite or non-positive output")
+    for key, tol in GP_WEB_RTOL.items():
+        check(gaps[key] <= tol, f"gp_web: {key} off the GRIEF model's by {gaps[key]:.3e} (limit {tol})")
+    check(rmse <= UCI2M_RMSE_MAX, f"gp_web rmse {rmse} > {UCI2M_RMSE_MAX}")
+    return web, Phis
+
+
+# Phase 14c: select_rows_t with repeated indices at this size, twice.
+SELECT_ROWS_SHAPE = dict(k=1_000_000, m=100_000, cols=8)
+SELECT_ROWS_RTOL = 1e-5
+
+
+def phase_surface(card: str, model, res, web, Phis) -> None:
+    """Phase 14c: the command line's ``checkgrad`` on the card (a
+    subprocess), a checkpoint round trip of the uci2m GRIEF model and its
+    Adam state (the NLML bit for bit), a ``utils.profiling.trace`` of one
+    GPweb predict (a non-empty trace with the card's kernels in it), and
+    ``ops.select_rows_t`` with repeated indices run twice (the same bits)."""
+    import tempfile
+
+    import torch
+
+    from gp_grief_tpu_torch.ops import select_rows_t
+    from gp_grief_tpu_torch.utils import load_pytree, save_pytree, trace
+
+    out = {"phase": "surface"}
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "gp_grief_tpu_torch", "checkgrad", "--device", DEVICE],
+                         capture_output=True, text=True, timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = cli.stdout.splitlines()
+    out["checkgrad"] = {"returncode": cli.returncode, "last_line": lines[-1] if lines else "", "rows": len(lines) - 2,
+                        "s": time.perf_counter() - t0}
+
+    ll = model.log_likelihood()
+    like = {"model": model, "opt": res.opt_state}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "uci2m.npz")
+        save_pytree(path, like)
+        out["checkpoint_bytes"] = os.path.getsize(path)
+        start = {k: v.clone() for k, v in model.state_dict().items()}
+        with torch.no_grad():
+            model.log_w.zero_()
+            model.log_noise.add_(1.0)
+        back = load_pytree(path, like)
+        model.load_state_dict(back["model"])
+        ll_back = model.log_likelihood()
+        params_same = all(torch.equal(v, start[k]) for k, v in model.state_dict().items())
+        opt_same = all(torch.equal(a, b) for i in res.opt_state["state"]
+                       for a, b in zip(res.opt_state["state"][i].values(), back["opt"]["state"][i].values()))
+        out["checkpoint"] = {"nlml": -ll, "nlml_restored": -ll_back, "params_identical": params_same,
+                             "adam_state_identical": opt_same}
+
+        logdir = os.path.join(tmp, "trace")
+        with trace(logdir):
+            web.predict(Phis)
+        files = os.listdir(logdir)
+        events = json.load(open(os.path.join(logdir, files[0])))["traceEvents"] if files else []
+        out["trace"] = {"files": len(files), "bytes": sum(os.path.getsize(os.path.join(logdir, f)) for f in files),
+                        "kernel_events": sum(1 for e in events if e.get("cat") == "kernel")}
+
+    k, m, cols = SELECT_ROWS_SHAPE["k"], SELECT_ROWS_SHAPE["m"], SELECT_ROWS_SHAPE["cols"]
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    idx = torch.randint(0, m, (k,), device=DEVICE, generator=gen)
+    u = torch.randn((k, cols), device=DEVICE, generator=gen)
+    first, second = select_rows_t(idx, u, m), select_rows_t(idx, u, m)
+    want = torch.zeros((m, cols), dtype=torch.float64).index_add_(0, idx.cpu(), u.double().cpu())
+    lib = [torch.zeros((m, cols), device=DEVICE).index_add_(0, idx, u) for _ in range(2)]
+    out["select_rows_t"] = {**SELECT_ROWS_SHAPE, "runs_identical": bool(torch.equal(first, second)),
+                            "rel_err_vs_f64": rel_err(first, want), "tol": SELECT_ROWS_RTOL,
+                            "ms": cuda_ms(lambda: select_rows_t(idx, u, m), reps=10),
+                            "index_add_ms": cuda_ms(lambda: torch.zeros((m, cols), device=DEVICE).index_add_(0, idx, u),
+                                                    reps=10),
+                            "index_add_runs_identical": bool(torch.equal(lib[0], lib[1]))}
+    emit({**out, "card": card})
+    check(cli.returncode == 0 and out["checkgrad"]["last_line"] == "OK",
+          f"checkgrad on the card: exit {cli.returncode}, {cli.stdout[-2000:]}{cli.stderr[-2000:]}")
+    check(ll_back == ll and params_same and opt_same, "the uci2m checkpoint round trip changed the NLML or the state")
+    check(out["trace"]["files"] == 1 and out["trace"]["bytes"] > 0 and out["trace"]["kernel_events"] > 0,
+          "the GPweb predict trace is empty or holds no kernel of the card")
+    check(out["select_rows_t"]["runs_identical"], "select_rows_t gave different bits in two runs")
+    check(out["select_rows_t"]["rel_err_vs_f64"] <= SELECT_ROWS_RTOL, "select_rows_t is off its float64 sums")
 
 
 def kernel_groups(items) -> dict:
@@ -828,11 +1006,13 @@ def phase_grid(card: str, name: str) -> None:
     model = grid_model(name, xg, y, torch.float32, "cuda")
     kern = getattr(tk, cfg["kernel"])
     before = kern.launches
-    nl32c, tcg = timed(model.log_likelihood)
+    with ExactApplies() as refined:
+        nl32c, tcg = timed(model.log_likelihood)
     launched = kern.launches - before
     info = model.cg_info
     mean, t_mean = timed(lambda: model.predict(xs_mean, compute_var=False))
     (mean_v, var), t_var = timed(lambda: model.predict(xs_var))
+    phase_kron_segmented(card, name, model, nl64)
     torch.cuda.empty_cache()
 
     ref = JAX_GRID_NLML_F64[name]
@@ -845,7 +1025,7 @@ def phase_grid(card: str, name: str) -> None:
           "nlml_f64_schur": -nl64, "jax_nlml_f64_schur": ref, "rel_err_f64": rel64,
           "rel_tol_f64": GRID_NLML_F64_RTOL, "nlml_f32_schur": -nl32s, "nlml_f32_cg": -nl32c,
           "cg_gap": gap, "cg_gap_tol": GRID_CG_GAP_RTOL, "cg_iterations": info.iterations,
-          "cg_fallback_iterations": info.fallback_iterations,
+          "cg_fallback_iterations": info.fallback_iterations, "refined_solves": refined.solves,
           "cg_rel_residual": float(info.residual_norm.max()) / float(torch.linalg.norm(torch.as_tensor(y).double())),
           "kernel": cfg["kernel"], "kernel_launches_in_cg_nlml": launched,
           "mean_rel_err_vs_f64": mean_err, "mean_tol": GRID_MEAN_RTOL,
@@ -858,6 +1038,73 @@ def phase_grid(card: str, name: str) -> None:
     check(mean.shape == (10_000,) and bool(torch.isfinite(mean).all()), f"{name}: bad predictive mean")
     check(var.shape == (512,) and bool(torch.isfinite(var).all() and (var > 0).all()), f"{name}: bad variance")
     check(mean_err <= GRID_MEAN_RTOL, f"{name}: f32 mean off the f64 mean by {mean_err:.3e} of its scale")
+
+
+class ExactApplies:
+    """Counts the exact operator's applies in each ``ops.cg.cg_solve_refined``
+    call the models make inside the ``with`` block: ``solves`` gets one
+    record per call (exact applies: 1 + restarts, plus the fallback's 1 +
+    its iterations; with ``return_info``, the restarts and fallback
+    iterations)."""
+
+    def __enter__(self):
+        from gp_grief_tpu_torch.models import gp_kron, gp_regression, gp_ski
+        from gp_grief_tpu_torch.ops import cg
+
+        self.modules, self.plain, self.solves = (gp_kron, gp_regression, gp_ski), cg.cg_solve_refined, []
+
+        def solve(matvec_fast, matvec_exact, b, **kw):
+            calls = [0]
+
+            def counted(v):
+                calls[0] += 1
+                return matvec_exact(v)
+
+            out = self.plain(matvec_fast, counted, b, **kw)
+            row = {"exact_applies": calls[0]}
+            if kw.get("return_info"):
+                row.update(restarts=out[1].iterations // kw["inner_iters"],
+                           fallback_iterations=out[1].fallback_iterations)
+            self.solves.append(row)
+            return out
+
+        for module in self.modules:
+            module.cg_solve_refined = solve
+        return self
+
+    def __exit__(self, *exc):
+        for module in self.modules:
+            module.cg_solve_refined = self.plain
+        return False
+
+
+def phase_kron_segmented(card: str, name: str, model, ll64: float) -> None:
+    """Phase 14b: ``log_likelihood_segmented()`` of the float32 CG model at
+    full size, twice (the runs bit-identical), held to the phase's float64
+    Schur log-likelihood at GRID_CG_GAP_RTOL.  Its solve runs the exact
+    operator, "highest", on the route ``kron_fast.kernel_route`` picks:
+    K3 at grid8x512x512_exact, the chain at grid32x5_mixed."""
+    import torch
+    from gp_grief_tpu_torch.ops.cuda import kron as tk
+    from gp_grief_tpu_torch.ops.kron_fast import kernel_route
+
+    route = kernel_route(model._factors(), 1, "highest", vector_dtype=model.y.dtype)
+    before = {"K2": tk.kron_matvec_slab.launches, "K3": tk.kron_matvec_fused.launches}
+    ll, t = timed(model.log_likelihood_segmented)
+    iters = model.cg_iterations
+    ll2, t2 = timed(model.log_likelihood_segmented)
+    launches = {"K2": tk.kron_matvec_slab.launches - before["K2"], "K3": tk.kron_matvec_fused.launches - before["K3"]}
+    gap = abs(ll - ll64) / abs(ll64)
+    emit({"phase": "kron_segmented", "config": name, "M": int(model.m), "cg_segment_iters": 60,
+          "cg_tol": model.cg_tol, "precond_rank": model.precond_rank, "cg_whiten": model.cg_whiten,
+          "route": route, "nlml_segmented": -ll, "nlml_f64_schur": -ll64, "gap": gap, "gap_tol": GRID_CG_GAP_RTOL,
+          "repeat_identical": ll2 == ll, "cg_iterations": iters, "launches_two_runs": launches,
+          "s": [t, t2], "card": card})
+    check(np.isfinite(ll) and gap <= GRID_CG_GAP_RTOL,
+          f"{name}: segmented NLML {-ll} off the f64 schur NLML {-ll64} by {gap:.3e}")
+    check(ll2 == ll, f"{name}: two segmented NLML runs differ ({-ll} vs {-ll2})")
+    check(route != "fused" or launches["K3"] > 0, f"{name}: the segmented NLML's route is K3 but K3 never launched")
+    check(name != "grid8x512x512_exact" or route == "fused", f"{name}: the segmented NLML's route is {route}, not K3")
 
 
 # float64 on the card against the JAX package's float64 CPU run of the same
@@ -1931,8 +2178,9 @@ def phase_gp40k(card: str) -> dict:
         del vv, mv, mv_fast
 
     m16 = gp_iter_model(x, y, torch.float32, DEVICE, matvec_chunk=chunk, mixed16=True)
-    nl16, st = run_measured(lambda: -m16.log_likelihood_iterative_segmented(**GP_ITER_NLML))
-    out["mixed16"] = {"nlml": nl16, "cg_iterations": m16.cg_iterations, **st}
+    with ExactApplies() as refined:
+        nl16, st = run_measured(lambda: -m16.log_likelihood_iterative_segmented(**GP_ITER_NLML))
+    out["mixed16"] = {"nlml": nl16, "cg_iterations": m16.cg_iterations, "refined_solves": refined.solves, **st}
     del m16
 
     gaps = {"nlml_fused": abs(nl_fused - exact["nlml"]) / abs(exact["nlml"]),

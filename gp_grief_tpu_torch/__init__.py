@@ -1,6 +1,6 @@
 """gp_grief_tpu_torch — the PyTorch/CUDA port of gp_grief_tpu.
 
-Four paths so far:
+Five models:
 
 * the GP-GRIEF model: ``InducingGrid`` → per-dimension Gram matrices and
   ``eigh`` → log-space top-p Kronecker eigenvalue selection → Φ assembly
@@ -17,7 +17,14 @@ Four paths so far:
   mixed-precision refinement, chunked predict;
 * SKI, ``GPSKIRegression``: scattered data interpolated onto a grid, its
   log-likelihood (CG + SLQ, data-space or lattice-dual solver) and predict
-  (exact and LOVE variances); ``Wᵀ`` on kernel K4, the dual's ``WᵀW`` on K5.
+  (exact and LOVE variances); ``Wᵀ`` on kernel K4, the dual's ``WᵀW`` on K5;
+* ``GPweb``: the weights and noise of a weighted basis over any precomputed
+  Φ (the paper's fast reweighting), from its chunked ΦᵀΦ / Φᵀy.
+
+Besides the models: the structured operators and solvers (``ops``),
+checkpoints, metric logs, profiling spans and finiteness guards
+(``gp_grief_tpu_torch.utils``) and a command line,
+``python -m gp_grief_tpu_torch {checkgrad|configs}``.
 
 The kernels are hand-written CUDA for Hopper and run on CUDA tensors.  Models
 run on the card unless built with ``device="cpu"`` (or from CPU tensors).
@@ -42,6 +49,8 @@ print(grid_gp.log_likelihood())
 ```
 """
 
+__version__ = "0.1.0"
+
 from gp_grief_tpu_torch import convert, kernels, models, ops, optimize
 from gp_grief_tpu_torch.grid import InducingGrid
 from gp_grief_tpu_torch.kernels.extra import (
@@ -52,9 +61,10 @@ from gp_grief_tpu_torch.models.gp_grief import GPGriefModel
 from gp_grief_tpu_torch.models.gp_kron import GPKroneckerRegression
 from gp_grief_tpu_torch.models.gp_regression import GPRegression
 from gp_grief_tpu_torch.models.gp_ski import GPSKIRegression
+from gp_grief_tpu_torch.models.gp_web import GPweb
 
 __all__ = [
     "InducingGrid", "make_kernel", "make_ratquad", "make_periodic", "RatQuad", "Periodic", "Cosine", "White",
     "Constant", "Linear", "Sum", "Product", "GPGriefModel", "GPKroneckerRegression", "GPRegression", "GPSKIRegression",
-    "convert", "kernels", "models", "ops", "optimize",
+    "GPweb", "convert", "kernels", "models", "ops", "optimize", "__version__",
 ]

@@ -2,6 +2,7 @@
 
 The JAX package's parameters are a pytree whose leaves have dotted names
 (``kernels.0.log_lengthscale``, …, ``log_noise``, ``log_w`` for GP-GRIEF;
+``log_noise`` and ``log_w`` alone for ``GPweb``;
 the same without ``log_w`` for ``GPKroneckerRegression`` and
 ``GPSKIRegression``; ``kernel.log_lengthscale`` or
 ``kernel.0.log_lengthscale``, …, ``log_noise`` for ``GPRegression``, whose
@@ -32,8 +33,8 @@ def params_from_jax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """A ``state_dict`` for the port from the JAX leaves keyed by dotted name
     (``dict(zip(model._param_leaf_names(), leaves))`` on the JAX side);
     ``load_state_dict`` casts it to the model's dtype and device.  Takes the
-    leaves of ``GPGriefModel``, ``GPRegression``, ``GPKroneckerRegression``
-    and ``GPSKIRegression``; raises on any other name."""
+    leaves of ``GPGriefModel``, ``GPRegression``, ``GPKroneckerRegression``,
+    ``GPSKIRegression`` and ``GPweb``; raises on any other name."""
     out = {}
     for name, value in flat.items():
         if not _LEAF.match(name):

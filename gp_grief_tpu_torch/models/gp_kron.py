@@ -30,7 +30,7 @@ from gp_grief_tpu_torch.kernels.diag import cov_diag
 from gp_grief_tpu_torch.kernels.grid import cov_grid, cross_cov_grid
 from gp_grief_tpu_torch.kernels.stationary import Stationary
 from gp_grief_tpu_torch.models.base import BaseModel, resolve_device
-from gp_grief_tpu_torch.ops.cg import CGInfo, cg_solve, cg_solve_refined
+from gp_grief_tpu_torch.ops.cg import CGInfo, cg_segments, cg_solve, cg_solve_refined
 from gp_grief_tpu_torch.ops.khatri_rao import kr_expand, kr_matvec
 from gp_grief_tpu_torch.ops.kron import kron_eigh, kron_matvec, kron_solve_schur, lam_kron
 from gp_grief_tpu_torch.ops.kron_fast import kron_matvec_fast
@@ -69,9 +69,7 @@ class GPKroneckerRegression(BaseModel):
     ``optimize`` trains either solver; under ``solver="cg"`` the gradient of
     the quadratic term is the CG implicit gradient (``ops.cg``).
 
-    Not ported yet, each raising: ``mesh=`` (the model-parallel matvec) and
-    ``log_likelihood_segmented`` (a host loop for a TPU runtime's
-    per-program time limit).
+    Not ported yet, raising: ``mesh=`` (the model-parallel matvec).
     """
 
     def __init__(
@@ -235,11 +233,50 @@ class GPKroneckerRegression(BaseModel):
         # quad = yᵀA⁻¹y = (M⁻½y)ᵀ (M⁻½AM⁻½)⁻¹ (M⁻½y) = rhs_w·alpha_w.
         return torch.dot(rhs_w, alpha_w[0])
 
-    def log_likelihood_segmented(self, **kwargs):
-        raise NotImplementedError(
-            "log_likelihood_segmented exists for a TPU runtime's per-program time limit and is not "
-            "ported; log_likelihood() runs the CG loop on the host already"
-        )
+    def log_likelihood_segmented(self, *, cg_segment_iters: int = 60, verbose: bool = False) -> float:
+        """Value-only log marginal likelihood with the quadratic term solved by
+        CG in host-driven segments of ``cg_segment_iters`` iterations
+        (:func:`ops.cg.cg_segments`, one residual read per segment).
+
+        The log-det stays the closed form ``Σ log(λ⊗ + σ²)`` on the clamped
+        eigenvalues; the solve runs on the exact operator
+        (``kron_matvec_fast(..., precision="highest")``) whatever
+        ``cg_precision`` says, as in the JAX package, whitened by the
+        Kronecker deflation when ``cg_whiten`` and ``precond_rank > 0``, else
+        preconditioned by it in data space.  It stops at ``max(cg_tol,
+        20·eps)`` relative, after ``ceil(cg_iters / cg_segment_iters)``
+        segments, or when a segment stalls (the port's stagnation stop).
+        ``cg_iterations`` holds the iterations run; ``verbose`` prints one
+        line per segment."""
+        with torch.no_grad():
+            sigma2 = torch.exp(self.log_noise)
+            factors = self._factors()
+            Qs, lams = self._eig(factors)
+            logdet = torch.sum(torch.log(lam_kron(lams) + sigma2))
+            factors = tuple(K.contiguous() for K in factors)
+            _w, M_inv = (lambda v: v), None
+            if self.precond_rank > 0:
+                _, idx = top_p_kron_eigs(lams, self.precond_rank)
+                M_inv_flat, M_inv_sqrt, _ = kron_deflation_sqrt_ops(Qs, lams, idx, sigma2)
+                if self.cg_whiten:
+                    _w = M_inv_sqrt
+                else:
+                    def M_inv(r):
+                        return M_inv_flat(r[0])[None]
+
+            # Batch-major (1, m) state; the operators run on the flat (m,) vector.
+            def op(v):
+                u = _w(v[0])
+                return _w(kron_matvec_fast(factors, u, precision="highest") + sigma2 * u)[None]
+
+            rhs = _w(self.y)[None, :]
+            x, self.cg_iterations = cg_segments(
+                op, rhs, tol=self.cg_tol, max_iters=self.cg_iters, segment_iters=int(cg_segment_iters), M_inv=M_inv,
+                verbose=verbose,
+            )
+            # quad = yᵀA⁻¹y = (M⁻½y)ᵀ(M⁻½AM⁻½)⁻¹(M⁻½y): rhs·x in both branches.
+            quad = float(torch.dot(rhs[0], x[0]))
+        return -0.5 * (quad + float(logdet) + self.m * math.log(2.0 * math.pi))
 
     def predict(self, x_new, compute_var: bool = True, include_noise: bool = False, chunk: int = 0):
         """Posterior mean (and variance) at scattered points, off the grid.

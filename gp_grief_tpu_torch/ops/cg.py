@@ -185,28 +185,36 @@ def _segment_mixed(matvec, state, segment_iters, _colsum, _bc, state_dtype):
 
 
 def cg_segments(op: Matvec, rhs: torch.Tensor, *, tol: float, max_iters: int, segment_iters: int,
-                state_dtype=None):
-    """Unpreconditioned CG on ``op`` (a whitened operator on ``(B, m)`` rows)
-    from zero, in segments of ``segment_iters`` iterations with one read of
-    the ``(B,)`` residual norms after each: the host driver of the JAX
-    package's segmented training solves (``gp_ski.py:1187-1228``).
+                state_dtype=None, M_inv: Optional[Matvec] = None, verbose: bool = False):
+    """CG on ``op`` (an operator on ``(B, m)`` rows) from zero, in segments
+    of ``segment_iters`` iterations with one host read after each: the host
+    driver of the JAX package's segmented solves (``gp_ski.py:1187-1228``,
+    ``gp_kron.py:315``).
 
     It stops when every live row meets ``tol`` (relative, clamped at 20·eps),
     after ``ceil(max_iters / segment_iters)`` segments, or when a segment
     shrinks no row's residual by 1.2× (the arithmetic floor: bf16 state sits
-    near 3.6e-3 relative).  ``state_dtype`` runs each segment with that
-    state (:func:`_segment_mixed`).  Value only.  Returns ``(x, iterations)``."""
+    near 3.6e-3 relative).  ``M_inv`` preconditions the iterations (on
+    ``(B, m)`` rows; data-space PCG, as JAX's segmented grid NLML runs it);
+    ``state_dtype`` runs each segment unpreconditioned with that state
+    (:func:`_segment_mixed`).  ``verbose`` prints one line per segment.
+    Value only.  Returns ``(x, iterations)``."""
+    if M_inv is not None and state_dtype is not None:
+        raise ValueError("cg_segments: M_inv and state_dtype do not combine (the mixed segment is unpreconditioned)")
     _colsum, _colnorm, _bc = _reducers("bm")
     with torch.no_grad():
-        rz0 = _colsum(rhs * rhs)
-        state = (torch.zeros_like(rhs), rhs, rhs, rhs, rz0, torch.zeros(rz0.shape, dtype=torch.bool,
-                                                                         device=rhs.device))
-        stop = _stop(torch.sqrt(rz0), tol)
-        step = _make_pcg_step(op, lambda r_: r_, _colsum, _bc)
-        rnorm, dead = torch.sqrt(rz0), state[5]
+        bnorm = _colnorm(rhs)
+        z0 = rhs if M_inv is None else M_inv(rhs)
+        rz0 = _colsum(rhs * z0)
+        state = (torch.zeros_like(rhs), rhs, z0, z0, rz0, torch.zeros(rz0.shape, dtype=torch.bool,
+                                                                       device=rhs.device))
+        stop = _stop(bnorm, tol)
+        step = _make_pcg_step(op, M_inv if M_inv is not None else (lambda r_: r_), _colsum, _bc)
+        rnorm = bnorm
+        go = bool(torch.any(rnorm > stop))
         iters = 0
-        for _ in range(max(1, -(-int(max_iters) // int(segment_iters)))):
-            if not bool(torch.any((rnorm > stop) & ~dead)):
+        for s in range(max(1, -(-int(max_iters) // int(segment_iters)))):
+            if not go:
                 break
             prev = rnorm
             if state_dtype is not None:
@@ -215,8 +223,13 @@ def cg_segments(op: Matvec, rhs: torch.Tensor, *, tol: float, max_iters: int, se
                 for _ in range(segment_iters):
                     state = step(*state)
             iters += segment_iters
-            rnorm, dead = _colnorm(state[1]), state[5]
-            if not bool(torch.any(rnorm < prev / 1.2)):
+            rnorm = _colnorm(state[1])
+            # One read per segment: the stop test and the stagnation test.
+            go, moved, rel = torch.stack([torch.any((rnorm > stop) & ~state[5]), torch.any(rnorm < prev / 1.2),
+                                          torch.max(rnorm / torch.clamp_min(bnorm, 1e-30))]).tolist()
+            if verbose:
+                print(f"[cg_segments] segment {s + 1}: iters={iters} max_rel_resid={rel:.3e}")
+            if not moved:
                 break
     return state[0], iters
 
@@ -328,6 +341,10 @@ def _refined(matvec_fast, matvec_exact, rhs, tol, inner_iters, max_restarts, M_i
     x = torch.zeros_like(rhs)
     x_best = x
     rnorm = rnorm_best = bnorm
+    # The exact residual of the current iterate, refreshed once per restart
+    # and carried into the next one (JAX ``cg_solve_refined_segmented``'s
+    # ``refresh``): 1 + restarts exact applies in all, plus the fallback's.
+    r = rhs - matvec_exact(x)
     outer = 0
     while outer < max_restarts and bool(torch.any(rnorm_best > stop)):
         # Divergence brake: once the current residual exceeds 100x the best
@@ -335,10 +352,10 @@ def _refined(matvec_fast, matvec_exact, rhs, tol, inner_iters, max_restarts, M_i
         # precision); keep the best iterate.
         if bool(torch.all(rnorm > 100.0 * torch.maximum(rnorm_best, stop))):
             break
-        r = rhs - matvec_exact(x)
         d, _ = _cg_fixed(matvec_fast, r, None, inner_iters, M_inv, layout, state_dtype)
         x = x + d
-        rnorm = _colnorm(rhs - matvec_exact(x))
+        r = rhs - matvec_exact(x)
+        rnorm = _colnorm(r)
         # NaN-poisoning guard: the low-precision inner CG can overflow its
         # iterate one step before its own freeze triggers, making rnorm NaN;
         # `NaN > stop` is False and would read as converged and skip the

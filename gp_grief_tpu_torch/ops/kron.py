@@ -31,6 +31,9 @@ __all__ = [
     "kron_expand",
     "kron_diag",
     "kron_eigh",
+    "kron_svd",
+    "kron_chol",
+    "kron_logdet_from_chol",
     "kron_logdet_from_eigs",
     "kron_solve_schur",
 ]
@@ -94,6 +97,47 @@ def kron_eigh(factors: Factors) -> Tuple[Tuple[torch.Tensor, ...], Tuple[torch.T
         out_Q.append(Q)
         out_l.append(lam)
     return tuple(out_Q), tuple(out_l)
+
+
+def kron_svd(
+    factors: Factors,
+) -> Tuple[Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...]]:
+    """Per-factor SVD ``K_d = U_d S_d V_dᵀ``, so ``⊗K_d = (⊗U_d)(⊗S_d)(⊗V_d)ᵀ``.
+
+    Equal-shape factors run as one batched ``svd``; others loop.  Returns
+    ``(Us, Ss, Vs)``: left singular vectors, singular values (descending) and
+    right singular vectors ``V_d`` (not transposed).  Signs of the singular
+    vectors are the linear-algebra library's."""
+    shapes = {tuple(int(s) for s in f.shape) for f in factors}
+    if len(shapes) == 1 and len(factors) > 1:
+        U, S, Vh = torch.linalg.svd(torch.stack(list(factors), dim=0), full_matrices=False)
+        return tuple(U.unbind(0)), tuple(S.unbind(0)), tuple(Vh.mT.unbind(0))
+    Us, Ss, Vs = [], [], []
+    for K in factors:
+        U, S, Vh = torch.linalg.svd(K, full_matrices=False)
+        Us.append(U)
+        Ss.append(S)
+        Vs.append(Vh.T)
+    return tuple(Us), tuple(Ss), tuple(Vs)
+
+
+def kron_chol(factors: Factors) -> Tuple[torch.Tensor, ...]:
+    """Per-factor Cholesky: ``chol(⊗K_d) = ⊗chol(K_d)``; equal-size factors
+    run as one batched ``cholesky``."""
+    sizes = {int(f.shape[0]) for f in factors}
+    if len(sizes) == 1 and len(factors) > 1:
+        return tuple(torch.linalg.cholesky(torch.stack(list(factors), dim=0)).unbind(0))
+    return tuple(torch.linalg.cholesky(K) for K in factors)
+
+
+def kron_logdet_from_chol(chol_factors: Factors) -> torch.Tensor:
+    """``log|⊗K_d|`` from per-factor Cholesky factors:
+    ``Σ_d (m/m_d) · 2 Σ log diag(L_d)``."""
+    m = math.prod(int(L.shape[0]) for L in chol_factors)
+    total = torch.zeros((), dtype=chol_factors[0].dtype, device=chol_factors[0].device)
+    for L in chol_factors:
+        total = total + (m // int(L.shape[0])) * 2.0 * torch.sum(torch.log(torch.diagonal(L)))
+    return total
 
 
 def kron_logdet_from_eigs(lams: Factors) -> torch.Tensor:

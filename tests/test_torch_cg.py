@@ -179,3 +179,77 @@ def test_cg_value_solves_refuse_a_required_gradient():
         assert tcg.cg_solve(tmv, bt, tol=1e-8).shape == bt.shape
     with pytest.raises(ValueError, match="layout"):
         tcg.cg_solve(tmv, bt.detach(), layout="row")
+
+
+def _refined_two_applies(matvec_fast, matvec_exact, rhs, tol, inner_iters, max_restarts, M_inv, layout, state_dtype):
+    """The refinement loop as it was before the residual was carried across
+    restarts: the exact operator applied twice per restart to the same
+    iterate.  The oracle of the carried residual's bits."""
+    _, _colnorm, _bc = tcg._reducers(layout)
+    bnorm = _colnorm(rhs)
+    stop = tol * torch.clamp_min(bnorm, torch.finfo(rhs.dtype).tiny)
+    x = torch.zeros_like(rhs)
+    x_best = x
+    rnorm = rnorm_best = bnorm
+    outer = 0
+    while outer < max_restarts and bool(torch.any(rnorm_best > stop)):
+        if bool(torch.all(rnorm > 100.0 * torch.maximum(rnorm_best, stop))):
+            break
+        r = rhs - matvec_exact(x)
+        d, _ = tcg._cg_fixed(matvec_fast, r, None, inner_iters, M_inv, layout, state_dtype)
+        x = x + d
+        rnorm = _colnorm(rhs - matvec_exact(x))
+        rnorm = torch.where(torch.isfinite(rnorm), rnorm, torch.full_like(rnorm, torch.inf))
+        better = rnorm < rnorm_best
+        x_best = torch.where(_bc(better), x, x_best)
+        rnorm_best = torch.minimum(rnorm, rnorm_best)
+        outer += 1
+    fallback = 0
+    if bool(torch.any(rnorm_best > stop)):
+        xf, info = tcg._cg_raw(matvec_exact, rhs, x_best, tol, inner_iters * max_restarts, M_inv, layout)
+        better = info.residual_norm < rnorm_best
+        x_best = torch.where(_bc(better), xf, x_best)
+        rnorm_best = torch.minimum(info.residual_norm, rnorm_best)
+        fallback = info.iterations
+    return x_best, rnorm_best, outer, fallback
+
+
+@pytest.mark.parametrize("case", ["mixed", "mixed16", "fallback"])
+def test_cg_solve_refined_applies_the_exact_operator_once_per_restart(case):
+    """A counting exact operator: 1 + restarts applies (plus the fallback's
+    1 + its iterations), where the old loop made 2 per restart; the
+    solution, residuals and counts are the old loop's bits."""
+    Ks, b = _system(np.float32 if case != "fallback" else np.float64)
+    rhs = torch.as_tensor(b.T.copy())
+    _, tK, _, tmv = _ops(Ks, REFINE_SIGMA2)
+    exact = _bm(tmv)
+    if case == "fallback":
+        def fast(v):
+            return torch.full_like(v, torch.inf) * v
+    else:
+        def fast(v):
+            v32 = v.to(torch.float32)
+            return tkron.kron_matvec([_bf16(k) for k in tK], _bf16(v32).T).T + REFINE_SIGMA2 * v32
+    calls = [0]
+
+    def counted(v):
+        calls[0] += 1
+        return exact(v)
+
+    args = (1e-8 if case == "fallback" else 1e-6, 20, 3 if case == "fallback" else 10, None, "bm",
+            torch.bfloat16 if case == "mixed16" else None)
+    with torch.no_grad():
+        x, rnorm, outer, fallback = tcg._refined(fast, counted, rhs, *args)
+        new_calls = calls[0]
+        calls[0] = 0
+        x_old, rnorm_old, outer_old, fallback_old = _refined_two_applies(fast, counted, rhs, *args)
+    assert new_calls == 1 + outer + (1 + fallback if fallback else 0)
+    assert calls[0] == 2 * outer_old + (1 + fallback_old if fallback_old else 0)
+    assert (outer, fallback) == (outer_old, fallback_old) and outer > 0
+    assert (fallback > 0) == (case == "fallback")
+    assert torch.equal(x, x_old) and torch.equal(rnorm, rnorm_old)
+    # The public entry point runs the same loop.
+    calls[0] = 0
+    xs, info = tcg.cg_solve_refined(fast, counted, rhs, tol=args[0], inner_iters=20, max_restarts=args[2],
+                                    layout="bm", state_dtype=args[5], return_info=True, implicit_diff=False)
+    assert torch.equal(xs, x) and calls[0] == new_calls and info.iterations == 20 * outer
