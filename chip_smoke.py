@@ -108,13 +108,30 @@ non-zero without printing the final line:
              ``log_likelihood_segmented()`` at full size, twice (bit for
              bit), held to the float64 Schur NLML at GRID_CG_GAP_RTOL (K3 at
              grid8x512x512_exact; the chain at grid32x5_mixed).
+15. parallel — the multi-device layer (gp_grief_tpu_torch.parallel) on
+             ranks spawned by ``parallel.launch.spawn``: world 2 on gloo with
+             both ranks on cuda:0, then world 1 on NCCL (PARALLEL_RUNS).
+             uci2m_synth through ``ShardedGPGriefModel`` (NLML and gradient
+             at init against ``GPGriefModel(opt_kernel_params=True)`` on the
+             card, 3 Adam steps twice bit for bit, predict at 100k against
+             the single-device model at the trained parameters; K1 per
+             rank); grid8x512x512_exact through
+             ``GPKroneckerRegression(mesh=)`` against the float64 Schur NLML
+             (K3 per rank); ski1m_lattice (also ``log_likelihood_segmented``
+             and one ``optimize_segmented`` step) and ski100k_data through
+             ``ShardedGPSKIRegression`` against phase 9's single-device
+             float32 NLML with the same probes (K5 / K4 per rank).  One line
+             per case: each rank's wall, device time of one profiled NLML,
+             peak memory, collectives (calls, bytes, host seconds) and
+             launches, and each gap beside its limit (PARALLEL_RTOL).
 
 Then the ``nvidia-smi`` name/power-limit line, one ``{"kernels": [...]}``
 line (K1 launches from phases 4-5 (14a among them) and configs,
 K2/K3 from phase 7 (14b among them), K4/K5 from
 phase 9's float32 runs, K6-K8 from phase 10; ``training_launches`` from
-phases 11-12; phase 13 launches none) and, last, ``{"ok": true, "device":
-{...}}``.  This script imports no JAX.
+phases 11-12; phase 13 launches none; ``parallel_launches``, the ranks' sum
+over phase 15) and, last, ``{"ok": true, "device": {...}}``.  This script
+imports no JAX.
 """
 
 from __future__ import annotations
@@ -2315,6 +2332,298 @@ def phase_gp_iter(card: str) -> None:
     phase_gp_iter_train(card, GP_ITER_TRAIN_N)
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the multi-device layer (gp_grief_tpu_torch.parallel) on the card.
+# Each case runs on ranks spawned by parallel.launch.spawn: at world 2 on gloo
+# with both ranks on cuda:0 (NCCL refuses two ranks on one card: "Duplicate
+# GPU detected"), then GRIEF and grid at world 1 on NCCL, the backend a
+# multi-GPU user runs.  Each rank resets the kernels' counts just before its
+# case's main path and reads them just after; the ranks' sums are the
+# kernels line's ``parallel_launches``.
+# ---------------------------------------------------------------------------
+
+PARALLEL_RUNS = (("gloo", 2, ("uci2m", "grid8x512x512_exact", "ski1m_lattice", "ski100k_data")),
+                 ("nccl", 1, ("uci2m", "grid8x512x512_exact")))
+PARALLEL_TRAIN = dict(optimizer="adam", max_iters=3, learning_rate=0.05)
+# Limits of the sharded runs' gaps, relative: GRIEF's NLML, gradient (its
+# largest component), mean and variance (their scale) against the
+# single-device model on the card at the same parameters; the grid NLML
+# against the float64 Schur NLML (the CG NLML's own limit); SKI's NLML, and
+# ski1m's segmented NLML, against the single-device model's with the same
+# probes.  About three times the gaps first measured at world 2 on an NVIDIA
+# H100 80GB HBM3, 700.00 W (PERF.md §6: 0, 8.77e-7, 5.34e-7, 2.01e-7;
+# 2.27e-7, 5.23e-7 and 1.13e-6; world 1 on NCCL measured 0 for GRIEF); the
+# NLML's 0 gets four float32 epsilons.
+PARALLEL_RTOL = {"uci2m_nlml": 5e-7, "uci2m_grad": 3e-6, "uci2m_mean": 1.6e-6, "uci2m_var": 6e-7,
+                 "grid8x512x512_exact": GRID_CG_GAP_RTOL, "ski1m_lattice": 7e-7, "ski100k_data": 1.6e-6,
+                 "ski1m_lattice_segmented": 3.5e-6}
+PARALLEL_TIMEOUT = 900.0
+
+
+class RowBlockProbes:
+    """:class:`NumpyProbes` for one rank of a sharded model: a draw of this
+    rank's ``n_loc`` rows is its block of the ``(R, n_pad)`` probes the
+    single-device model draws; any other draw (the lattice dual's replicated
+    ``(R, M)`` probes) is the whole matrix."""
+
+    def __init__(self, n_pad: int, rows: slice):
+        self.calls, self.n_pad, self.rows = 0, n_pad, rows
+
+    def __call__(self, shape, *, dtype, device, generator):
+        import torch
+
+        shape = tuple(int(s) for s in shape)
+        if shape[1] == self.rows.stop - self.rows.start:
+            z = ski_probe(self.calls, (shape[0], self.n_pad))[:, self.rows]
+        else:
+            z = ski_probe(self.calls, shape)
+        self.calls += 1
+        return torch.as_tensor(z, dtype=dtype, device=device)
+
+
+def _same_bits(a, b) -> bool:
+    return bool(np.array_equal(np.asarray(a).view(np.uint8), np.asarray(b).view(np.uint8)))
+
+
+def _parallel_uci2m(torch, gpt, par, model_grad):
+    xtr, ytr, xte, _ = uci2m_data()
+    grid = gpt.InducingGrid.build(xtr[:200000], mbar=10)
+
+    def build():
+        return par.ShardedGPGriefModel(xtr, ytr, gpt.make_kernel("rbf", lengthscale=1.0, input_dim=1), grid,
+                                       n_eigs=400, noise_var=0.2, dtype=torch.float32, device="cuda")
+
+    def run():
+        model = build()
+        nlml0, grad0 = model_grad(model)
+        res = model.optimize(**PARALLEL_TRAIN)
+        again = build()
+        res2 = again.optimize(**PARALLEL_TRAIN)
+        mean, var = model.predict(xte)
+        return {"nlml0": nlml0, "grad0": grad0, "losses": np.asarray(res.losses),
+                "same_bits": _same_bits(model.parameters, again.parameters) and _same_bits(res.losses, res2.losses),
+                "nlml_after": -model.log_likelihood(), "params": model.parameters,
+                "mean": mean.cpu().numpy(), "var": var.cpu().numpy(), "rows_per_rank": int(model.x.shape[0])}, model
+
+    return run, lambda model: model_grad(model)
+
+
+def _parallel_grid(torch, gpt, par, model_grad):
+    name = "grid8x512x512_exact"
+    xg, y = grid_data(name)
+    world = torch.distributed.get_world_size()
+
+    def run():
+        mesh = par.make_mesh((world,), ("model",), device_type="cuda")
+        model = grid_model(name, xg, y, torch.float32, "cuda", mesh=mesh)
+        nlml = -model.log_likelihood()
+        return {"nlml": nlml, "cg_iterations": model.cg_info.iterations}, model
+
+    return run, lambda model: model.log_likelihood()
+
+
+def _parallel_ski(name, torch, gpt, par, model_grad):
+    import gp_grief_tpu_torch.ops.lanczos as tlz
+
+    cfg = SKI_CONFIGS[name]
+    x, y, xg = ski_data(name)
+
+    def run():
+        kerns = [gpt.make_kernel("rbf", lengthscale=cfg["lengthscale"]) for _ in range(SKI_D)]
+        model = par.ShardedGPSKIRegression(x, y, kerns, xg, noise_var=cfg["noise_var"], dtype=torch.float32,
+                                           device="cuda", **cfg["model"])
+        n_loc = int(model.x.shape[0])
+        rows = slice(model.rank * n_loc, (model.rank + 1) * n_loc)
+        draw, tlz.rademacher = tlz.rademacher, RowBlockProbes(model.n_pad, rows)
+        try:
+            nlml = -model.log_likelihood()
+        finally:
+            tlz.rademacher = draw
+        out = {"nlml": nlml, "cg_iterations": model.cg_info.iterations, "rows_per_rank": n_loc}
+        if cfg["model"]["solver"] == "lattice":
+            ll = model.log_likelihood()
+            ll_seg = model.log_likelihood_segmented()
+            res = model.optimize_segmented(max_iters=1, learning_rate=0.05, num_probes=8)
+            out.update(nlml_own=-ll, nlml_segmented=-ll_seg, step_surrogate=float(res.losses[0]),
+                       step_cg_iterations=model.cg_iterations)
+        return out, model
+
+    return run, lambda model: model.log_likelihood()
+
+
+def parallel_rank(cases) -> list:
+    """One rank of phase 15: each case's main path, with this rank's kernel
+    launches, collectives (calls, bytes, host seconds), wall, peak memory
+    and the device time of one profiled NLML (gradient included for GRIEF)."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    import gp_grief_tpu_torch as gpt
+    from gp_grief_tpu_torch import parallel as par
+    from gp_grief_tpu_torch.ops.cuda import interp_wt, kron_matvec_fused, kron_matvec_slab, phi_fused, wtw_stencil
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = {"K1": phi_fused, "K2": kron_matvec_slab, "K3": kron_matvec_fused, "K4": interp_wt, "K5": wtw_stencil}
+
+    def model_grad(model):
+        model.zero_grad()
+        loss = model._loss()
+        loss.backward()
+        return float(loss.detach()), np.concatenate([p.grad.detach().cpu().numpy().reshape(-1)
+                                                      for _, p in model._leaves()])
+
+    outs = []
+    for case in cases:
+        if case == "uci2m":
+            run, measure = _parallel_uci2m(torch, gpt, par, model_grad)
+        elif case in GRID_CONFIGS:
+            run, measure = _parallel_grid(torch, gpt, par, model_grad)
+        else:
+            run, measure = _parallel_ski(case, torch, gpt, par, model_grad)
+        torch.cuda.empty_cache()
+        dist.barrier()
+        for fn in counters.values():
+            fn.launches = 0
+        par.collectives.reset_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result, model = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        stats = {k: dict(v) for k, v in par.collectives.STATS.items()}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        dist.barrier()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            measure(model)
+            torch.cuda.synchronize()
+            nlml_wall = time.perf_counter() - t0
+        dev_ms, items = device_items(prof, top=5)
+        del model
+        outs.append({"case": case, "rank": dist.get_rank(), "world": dist.get_world_size(),
+                     "backend": dist.get_backend(), "device": torch.cuda.current_device(), "result": result,
+                     "launches": launches, "collectives": stats, "wall_s": wall, "peak_gb": peak,
+                     "nlml_wall_ms": nlml_wall * 1e3, "nlml_device_ms": dev_ms, "device_items": items})
+    return outs
+
+
+def _parallel_references(cases) -> dict:
+    """The single-device yardsticks on the card (this process): GRIEF's NLML
+    and gradient at init and the model for its predictions; each SKI case's
+    float32 NLML with the numpy probes (``ski_nlml``) and, for the lattice,
+    its segmented NLML with the model's own probes (``ski_segmented``)."""
+    import torch
+
+    import gp_grief_tpu_torch as gpt
+
+    refs = {"ski_nlml": {}, "ski_segmented": {}}
+    if "uci2m" in cases:
+        xtr, ytr, xte, _ = uci2m_data()
+        grid = gpt.InducingGrid.build(xtr[:200000], mbar=10)
+        ref = gpt.GPGriefModel(xtr, ytr, gpt.make_kernel("rbf", lengthscale=1.0, input_dim=1), grid, n_eigs=400,
+                               noise_var=0.2, opt_kernel_params=True, dtype=torch.float32, device="cuda")
+        ref.phi_impl = "fused"  # K1 forward, the plain version's VJP backward: no (d, n, p) saved per chunk
+        ref.zero_grad()
+        loss = ref._loss()
+        loss.backward()
+        refs["uci2m"] = {"model": ref, "xte": xte, "nlml0": float(loss.detach()),
+                         "grad0": np.concatenate([p.grad.detach().cpu().numpy().reshape(-1)
+                                                  for _, p in ref._leaves()])}
+    for name in SKI_CONFIGS:
+        if name in cases:
+            x, y, xg = ski_data(name)
+            model = ski_model(name, x, y, xg, torch.float32)
+            refs["ski_nlml"][name] = with_numpy_probes(lambda: -model.log_likelihood())
+            if SKI_CONFIGS[name]["model"]["solver"] == "lattice":
+                refs["ski_segmented"][name] = -model.log_likelihood_segmented()
+            del model
+            torch.cuda.empty_cache()
+    return refs
+
+
+def phase_parallel(card: str) -> dict:
+    """Phase 15: every sharded path on the card; returns the ranks' summed
+    launches per kernel."""
+    import torch
+
+    from gp_grief_tpu_torch.parallel.launch import spawn
+
+    torch.cuda.empty_cache()
+    all_cases = {c for _, _, cases in PARALLEL_RUNS for c in cases}
+    refs, t_refs = timed(lambda: _parallel_references(all_cases))
+    totals = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5")}
+    emit({"phase": "parallel_refs", "s": t_refs, "ski_nlml_f32": refs["ski_nlml"],
+          "ski_segmented_f32": refs["ski_segmented"], "card": card})
+    failed = []
+    for backend, world, cases in PARALLEL_RUNS:
+        outs, t_spawn = timed(lambda: spawn(parallel_rank, world, args=(cases,), backend=backend, device="cuda",
+                                            timeout=PARALLEL_TIMEOUT))
+        for i, case in enumerate(cases):
+            per_rank = [o[i] for o in outs]
+            r0 = per_rank[0]["result"]
+            line = {"phase": "parallel", "case": case, "backend": backend, "world": world,
+                    "devices": [p["device"] for p in per_rank], "spawn_s": t_spawn,
+                    "wall_s": [p["wall_s"] for p in per_rank], "peak_gb": [p["peak_gb"] for p in per_rank],
+                    "nlml_wall_ms": [p["nlml_wall_ms"] for p in per_rank],
+                    "nlml_device_ms": [p["nlml_device_ms"] for p in per_rank],
+                    "launches": [p["launches"] for p in per_rank],
+                    "collectives": [p["collectives"] for p in per_rank],
+                    "device_items": per_rank[0]["device_items"]}
+            gaps, checks = {}, []
+            if case == "uci2m":
+                ref = refs["uci2m"]
+                gaps["uci2m_nlml"] = abs(r0["nlml0"] - ref["nlml0"]) / abs(ref["nlml0"])
+                gaps["uci2m_grad"] = rel_err(r0["grad0"], ref["grad0"])
+                model = ref["model"]
+                model.parameters = r0["params"]
+                with torch.no_grad():
+                    mean, var = model.predict(ref["xte"])
+                gaps["uci2m_mean"] = rel_err(r0["mean"], mean.cpu().numpy())
+                gaps["uci2m_var"] = rel_err(r0["var"], var.cpu().numpy())
+                line.update(nlml=[r0["nlml0"], r0["nlml_after"]], ref_nlml=ref["nlml0"], losses=r0["losses"].tolist(),
+                            runs_bit_identical=r0["same_bits"], rows_per_rank=r0["rows_per_rank"])
+                checks += [(r0["same_bits"], "the two training runs differ"),
+                           (r0["nlml_after"] < r0["nlml0"], "the NLML did not fall in training"),
+                           (all(p["launches"]["K1"] > 0 for p in per_rank), "a rank never launched K1"),
+                           (all(_same_bits(p["result"]["params"], r0["params"]) for p in per_rank),
+                            "the ranks' parameters differ")]
+            elif case in GRID_CONFIGS:
+                ref = JAX_GRID_NLML_F64[case]
+                gaps[case] = abs(r0["nlml"] - ref) / abs(ref)
+                line.update(nlml=r0["nlml"], nlml_f64_schur=ref, cg_iterations=r0["cg_iterations"])
+                checks.append((all(p["launches"]["K3"] > 0 for p in per_rank), "a rank never launched K3"))
+            else:
+                ref = refs["ski_nlml"][case]
+                gaps[case] = abs(r0["nlml"] - ref) / abs(ref)
+                line.update({k: v for k, v in r0.items()}, ref_nlml=ref)
+                kernel = "K5" if SKI_CONFIGS[case]["model"]["solver"] == "lattice" else "K4"
+                checks.append((all(p["launches"][kernel] > 0 for p in per_rank), f"a rank never launched {kernel}"))
+                if "nlml_segmented" in r0:
+                    ref_seg = refs["ski_segmented"][case]
+                    gaps[case + "_segmented"] = abs(r0["nlml_segmented"] - ref_seg) / abs(ref_seg)
+                    line.update(ref_nlml_segmented=ref_seg)
+                    checks.append((np.isfinite(r0["step_surrogate"]), "non-finite optimize_segmented step"))
+            checks.append((all(abs(p["result"].get("nlml", p["result"].get("nlml0"))
+                                   - r0.get("nlml", r0.get("nlml0"))) == 0 for p in per_rank),
+                           "the ranks' NLMLs differ"))
+            line["gaps"] = {k: [v, PARALLEL_RTOL[k]] for k, v in gaps.items()}
+            emit({**line, "card": card})
+            checks += [(v <= PARALLEL_RTOL[k], f"{k} gap {v:.3e} > {PARALLEL_RTOL[k]}") for k, v in gaps.items()]
+            failed += [f"parallel {case} ({backend}, world {world}): {msg}" for ok, msg in checks if not ok]
+            for p in per_rank:
+                for k in totals:
+                    totals[k] += p["launches"][k]
+        # Every case's line first, then any failure.
+        check(not failed, "; ".join(failed))
+    del refs
+    torch.cuda.empty_cache()
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -2440,6 +2749,15 @@ def main() -> int:
     # Phase 13: GPRegression's iterative path, which launches no kernel of the
     # port (its Gram slabs are PyTorch ops).
     phase_gp_iter(card)
+
+    # Phase 15: the sharded paths, on ranks of their own; each rank counts its
+    # launches from 0 over its cases' main paths, and the ranks' sums are
+    # ``parallel_launches``.
+    par_launches = phase_parallel(card)
+    for key in ("K1", "K3", "K4", "K5"):
+        check(par_launches[key] > 0, f"the sharded paths never launched {key}")
+    for entry, key in zip(entries, ("K1", "K2", "K3", "K4", "K5", None, None, None, None)):
+        entry["parallel_launches"] = par_launches[key] if key else 0
 
     print(card, flush=True)
     emit({"kernels": entries})

@@ -21,6 +21,10 @@ Five models:
 * ``GPweb``: the weights and noise of a weighted basis over any precomputed
   Φ (the paper's fast reweighting), from its chunked ΦᵀΦ / Φᵀy.
 
+``parallel`` runs them over several ranks on ``torch.distributed`` (one
+process per device): ``ShardedGPGriefModel`` and ``ShardedGPSKIRegression``
+shard the training rows, ``GPKroneckerRegression(mesh=...)`` the lattice.
+
 Besides the models: the structured operators and solvers (``ops``),
 checkpoints, metric logs, profiling spans and finiteness guards
 (``gp_grief_tpu_torch.utils``) and a command line,
@@ -62,9 +66,10 @@ from gp_grief_tpu_torch.models.gp_kron import GPKroneckerRegression
 from gp_grief_tpu_torch.models.gp_regression import GPRegression
 from gp_grief_tpu_torch.models.gp_ski import GPSKIRegression
 from gp_grief_tpu_torch.models.gp_web import GPweb
+from gp_grief_tpu_torch import parallel  # noqa: E402  (after the models it wraps)
 
 __all__ = [
     "InducingGrid", "make_kernel", "make_ratquad", "make_periodic", "RatQuad", "Periodic", "Cosine", "White",
     "Constant", "Linear", "Sum", "Product", "GPGriefModel", "GPKroneckerRegression", "GPRegression", "GPSKIRegression",
-    "GPweb", "convert", "kernels", "models", "ops", "optimize", "__version__",
+    "GPweb", "convert", "kernels", "models", "ops", "optimize", "parallel", "__version__",
 ]

@@ -13,11 +13,21 @@ kernels K2/K3 on the card: exact CG, mixed-precision refinement
 (``cg_precision="mixed"``/``"mixed16"``), and an optional rank-p Kronecker
 deflation preconditioner (``precond_rank``).  CG training differentiates
 through the solve by its implicit gradient (``ops.cg``).
+
+With ``mesh=`` (a ``DeviceMesh``; the JAX package's model-parallel matvec)
+the CG NLML runs sharded over the mesh axis ``model_axis``: each rank holds
+its block of the lattice's leading axis, every matvec is
+``parallel.sharded.kron_matvec_sharded`` (one reduce-scatter), the
+deflation's two Kronecker matvecs are sharded the same way, and the solver's
+``group=`` all-reduces its dot products.  The eigendecompositions and the
+log-det stay replicated; ``predict`` and ``log_likelihood_segmented`` run
+the local matvec, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 import math
 from typing import Optional, Sequence, Union
 
@@ -30,6 +40,7 @@ from gp_grief_tpu_torch.kernels.diag import cov_diag
 from gp_grief_tpu_torch.kernels.grid import cov_grid, cross_cov_grid
 from gp_grief_tpu_torch.kernels.stationary import Stationary
 from gp_grief_tpu_torch.models.base import BaseModel, resolve_device
+from gp_grief_tpu_torch.ops.collectives import axis_index, axis_size, psum, replicate
 from gp_grief_tpu_torch.ops.cg import CGInfo, cg_segments, cg_solve, cg_solve_refined
 from gp_grief_tpu_torch.ops.khatri_rao import kr_expand, kr_matvec
 from gp_grief_tpu_torch.ops.kron import kron_eigh, kron_matvec, kron_solve_schur, lam_kron
@@ -69,7 +80,9 @@ class GPKroneckerRegression(BaseModel):
     ``optimize`` trains either solver; under ``solver="cg"`` the gradient of
     the quadratic term is the CG implicit gradient (``ops.cg``).
 
-    Not ported yet, raising: ``mesh=`` (the model-parallel matvec).
+    ``mesh``/``model_axis``: the sharded CG NLML (module docstring); needs
+    ``solver="cg"``, an axis of that name, and a leading grid size that
+    divides by the axis size.
     """
 
     def __init__(
@@ -93,9 +106,6 @@ class GPKroneckerRegression(BaseModel):
         device=None,
     ):
         super().__init__()
-        if mesh is not None:
-            raise NotImplementedError("GPKroneckerRegression(mesh=...): the model-parallel matvec is not ported yet")
-        del model_axis  # names a mesh axis; meaningful only with mesh=
         if dtype is None:
             if isinstance(y, torch.Tensor) and y.is_floating_point():
                 dtype = y.dtype
@@ -153,6 +163,25 @@ class GPKroneckerRegression(BaseModel):
         if cg_whiten == "auto":
             cg_whiten = float(noise_var) < 1e-4
         self.cg_whiten = bool(cg_whiten)
+        # Model parallelism: the CG NLML's matvecs sharded over `model_axis`.
+        self.mesh = mesh
+        self.model_axis = str(model_axis)
+        if mesh is not None:
+            if solver != "cg":
+                raise ValueError(
+                    "mesh= (model-parallel matvec) requires solver='cg' — the schur path has no large matvec to shard"
+                )
+            names = tuple(mesh.mesh_dim_names or ())
+            if model_axis not in names:
+                raise ValueError(f"mesh has no axis {model_axis!r}: {dict(zip(names, mesh.shape))}")
+            km = int(mesh.shape[names.index(model_axis)])
+            m1 = int(self.xg[0].shape[0])
+            if m1 % km:
+                raise ValueError(
+                    f"leading grid dimension ({m1} points) must be divisible by the {model_axis!r} mesh axis "
+                    f"size ({km} devices) — pad the first grid dimension or reorder dimensions so a divisible "
+                    "one is first"
+                )
         # CGInfo of the last CG log-likelihood evaluation (None before one).
         self.cg_info: Optional[CGInfo] = None
         kerns = list(kern_list) if isinstance(kern_list, (list, tuple)) else [kern_list] * len(self.xg)
@@ -191,28 +220,66 @@ class GPKroneckerRegression(BaseModel):
         implicit gradient (one more solve of the same kind in the backward)
         and through the whitener ``M^{-1/2}``, as in the JAX package; the
         data-space preconditioner hook carries no gradient."""
+        if self.mesh is not None:
+            return self._cg_quad_sharded(factors, Qs, lams, sigma2)
         M_inv = M_inv_sqrt = None
         if self.precond_rank > 0:
             _, idx = top_p_kron_eigs(lams, self.precond_rank)
             M_inv, M_inv_sqrt, _ = kron_deflation_sqrt_ops(Qs, lams, idx, sigma2)
+        factors = tuple(K.contiguous() for K in factors)
+
+        def kmv(u, precision):
+            return kron_matvec_fast(factors, u, precision=precision)
+
+        return self._cg_quad_solve(kmv, M_inv, M_inv_sqrt, sigma2, self.y, None)
+
+    def _cg_quad_sharded(self, factors, Qs, lams, sigma2) -> torch.Tensor:
+        """:meth:`_cg_quad` with the lattice's leading axis sharded over
+        ``model_axis``: this rank's rows of ``y``, the sharded matvec and
+        deflation, and the solver reducing over the axis' group."""
+        from gp_grief_tpu_torch.parallel.sharded import kron_matvec_sharded
+
+        mesh, axis = self.mesh, self.model_axis
+        group = mesh.get_group(axis)
+        n_loc = self.m // axis_size(mesh, axis)
+        j = axis_index(mesh, axis)
+        y_loc = self.y[j * n_loc : (j + 1) * n_loc]
+        kmv_sharded = functools.partial(kron_matvec_sharded, mesh=mesh, axis_name=axis)
+        M_inv = M_inv_sqrt = None
+        if self.precond_rank > 0:
+            _, idx = top_p_kron_eigs(lams, self.precond_rank)
+            # The eigenvalues and σ² enter this rank's rows: replicated,
+            # their gradient summed over the ranks once.
+            *lams_r, sigma2_r = replicate((*lams, sigma2), group)
+            M_inv, M_inv_sqrt, _ = kron_deflation_sqrt_ops(Qs, lams_r, idx, sigma2_r, kmv=kmv_sharded,
+                                                           rows=(j * n_loc, n_loc))
+
+        def kmv(u, precision):
+            return kmv_sharded(factors, u, precision=precision)
+
+        quad_loc = self._cg_quad_solve(kmv, M_inv, M_inv_sqrt, replicate(sigma2, group), y_loc, group)
+        return psum(quad_loc, group)
+
+    def _cg_quad_solve(self, kmv, M_inv, M_inv_sqrt, sigma2, y, group) -> torch.Tensor:
+        """``yᵀ(K + σ²I)⁻¹y`` (this rank's part of it with a ``group``) by CG
+        on ``kmv(u, precision) = (⊗K_d)u``."""
         whiten = self.cg_whiten and M_inv_sqrt is not None
         _w = M_inv_sqrt if whiten else (lambda v: v)
         M_inv_hook = None if whiten else M_inv
-        factors = tuple(K.contiguous() for K in factors)
 
         def mv_exact_w(v):
             u = _w(v)
-            return _w(kron_matvec_fast(factors, u, precision="highest") + sigma2 * u)
+            return _w(kmv(u, "highest") + sigma2 * u)
 
         def mv_fast_w(v):
             u = _w(v)
-            return _w(kron_matvec_fast(factors, u, precision="default") + sigma2 * u)
+            return _w(kmv(u, "default") + sigma2 * u)
 
         # Batch-major (1, m) state; every operator runs on the flat (m,) vector.
         def _bm(op):
             return lambda vv: op(vv[0])[None, :]
 
-        rhs_w = _w(self.y)
+        rhs_w = _w(y)
         precond = None if M_inv_hook is None else _bm(M_inv_hook)
         # Deflation and mixed refinement do not compose on this operator: the
         # bf16 matvec's absolute error (∝ λmax) swamps the deflated subspace
@@ -223,12 +290,12 @@ class GPKroneckerRegression(BaseModel):
                 _bm(mv_fast_w), _bm(mv_exact_w), rhs_w[None, :],
                 tol=max(self.cg_tol, 1e-7), inner_iters=50, max_restarts=max(1, self.cg_iters // 50),
                 M_inv=precond, state_dtype=torch.bfloat16 if self.cg_precision == "mixed16" else None,
-                layout="bm", return_info=True,
+                layout="bm", return_info=True, group=group,
             )
         else:
             alpha_w, self.cg_info = cg_solve(
                 _bm(mv_exact_w), rhs_w[None, :], tol=self.cg_tol, max_iters=self.cg_iters,
-                M_inv=precond, layout="bm", return_info=True,
+                M_inv=precond, layout="bm", return_info=True, group=group,
             )
         # quad = yᵀA⁻¹y = (M⁻½y)ᵀ (M⁻½AM⁻½)⁻¹ (M⁻½y) = rhs_w·alpha_w.
         return torch.dot(rhs_w, alpha_w[0])

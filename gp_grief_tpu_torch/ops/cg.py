@@ -10,6 +10,13 @@ JAX package's host-segmented solvers exist for a TPU runtime's per-program
 time limit and have no counterpart here; :func:`cg_segments` is the host
 driver of SKI's training solves, which keep their segment-level stop.
 
+``group=`` (a ``torch.distributed`` process group; the JAX package's
+``axis_name``) solves a system whose rows are sharded over the group's
+ranks: every inner product and norm, and so every stopping test, reads the
+all-reduced value, and every rank takes the same iterations.  The matvec
+then maps this rank's rows to its rows, making its own collectives.
+``group=None`` reduces nothing.
+
 :func:`cg_solve` and :func:`cg_solve_refined` are differentiable by the
 implicit adjoint (``lax.custom_linear_solve(symmetric=True)`` in the JAX
 package): the iterations run under ``torch.no_grad()``, and autograd sees
@@ -25,6 +32,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional
 
 import torch
+
+from gp_grief_tpu_torch.ops.collectives import psum
 
 __all__ = ["CGInfo", "cg_segments", "cg_solve", "cg_solve_refined"]
 
@@ -42,13 +51,22 @@ class CGInfo(NamedTuple):
     fallback_iterations: int = 0
 
 
-def _reducers(layout: str):
+def _group_sum(group):
+    """The identity, or with a ``group`` the sum over its ranks (``psum``)."""
+    if group is None:
+        return lambda t: t
+    return lambda t: psum(t, group)
+
+
+def _reducers(layout: str, group=None):
     """Per-system reduction and broadcast helpers: ``layout="col"`` holds
-    systems as columns of ``(m, B)``, ``layout="bm"`` as rows of ``(B, m)``."""
+    systems as columns of ``(m, B)``, ``layout="bm"`` as rows of ``(B, m)``.
+    With a ``group``, the sums are all-reduced over its ranks."""
     red_axis = 0 if layout == "col" else 1
+    reduce = _group_sum(group)
 
     def colsum(t):
-        return torch.sum(t, dim=red_axis)
+        return reduce(torch.sum(t, dim=red_axis))
 
     def colnorm(t):
         return torch.sqrt(colsum(t * t))
@@ -91,10 +109,10 @@ def _stop(bnorm: torch.Tensor, tol: float) -> torch.Tensor:
     return eff_tol * torch.clamp_min(bnorm, torch.finfo(bnorm.dtype).tiny)
 
 
-def _cg_raw(matvec, b, x0, tol, max_iters, M_inv, layout="col"):
+def _cg_raw(matvec, b, x0, tol, max_iters, M_inv, layout="col", group=None):
     """Preconditioned CG on ``b`` ``(m, B)`` (``"col"``) or ``(B, m)``
     (``"bm"``) until every live system meets ``tol`` or ``max_iters``."""
-    _colsum, _colnorm, _bc = _reducers(layout)
+    _colsum, _colnorm, _bc = _reducers(layout, group)
     stop = _stop(_colnorm(b), tol)
     precond = M_inv if M_inv is not None else (lambda r: r)
     r = b - matvec(x0)
@@ -110,7 +128,7 @@ def _cg_raw(matvec, b, x0, tol, max_iters, M_inv, layout="col"):
     return x, CGInfo(iterations=k, residual_norm=_colnorm(r))
 
 
-def _cg_fixed(matvec, b, x0, num_iters, M_inv, layout="col", state_dtype=None):
+def _cg_fixed(matvec, b, x0, num_iters, M_inv, layout="col", state_dtype=None, group=None):
     """Exactly ``num_iters`` CG iterations, with no convergence test.
 
     ``state_dtype`` (e.g. ``torch.bfloat16``) stores the carried ``r`` and ``p``
@@ -118,7 +136,7 @@ def _cg_fixed(matvec, b, x0, num_iters, M_inv, layout="col", state_dtype=None):
     ``x`` accumulator, the reductions and the update arithmetic stay in
     ``b``'s dtype.  The stagnation floor rises to about that dtype's epsilon,
     so it serves inner solves whose accuracy an outer refinement restores."""
-    _colsum, _, _bc = _reducers(layout)
+    _colsum, _, _bc = _reducers(layout, group)
     wd = b.dtype
     sd = None if state_dtype is None or state_dtype == wd else state_dtype
     _st = (lambda a: a.to(sd)) if sd is not None else (lambda a: a)
@@ -185,7 +203,7 @@ def _segment_mixed(matvec, state, segment_iters, _colsum, _bc, state_dtype):
 
 
 def cg_segments(op: Matvec, rhs: torch.Tensor, *, tol: float, max_iters: int, segment_iters: int,
-                state_dtype=None, M_inv: Optional[Matvec] = None, verbose: bool = False):
+                state_dtype=None, M_inv: Optional[Matvec] = None, verbose: bool = False, group=None):
     """CG on ``op`` (an operator on ``(B, m)`` rows) from zero, in segments
     of ``segment_iters`` iterations with one host read after each: the host
     driver of the JAX package's segmented solves (``gp_ski.py:1187-1228``,
@@ -198,10 +216,12 @@ def cg_segments(op: Matvec, rhs: torch.Tensor, *, tol: float, max_iters: int, se
     ``(B, m)`` rows; data-space PCG, as JAX's segmented grid NLML runs it);
     ``state_dtype`` runs each segment unpreconditioned with that state
     (:func:`_segment_mixed`).  ``verbose`` prints one line per segment.
+    ``group``: rows sharded over its ranks (module docstring); the one read
+    per segment is of all-reduced norms, the same on every rank.
     Value only.  Returns ``(x, iterations)``."""
     if M_inv is not None and state_dtype is not None:
         raise ValueError("cg_segments: M_inv and state_dtype do not combine (the mixed segment is unpreconditioned)")
-    _colsum, _colnorm, _bc = _reducers("bm")
+    _colsum, _colnorm, _bc = _reducers("bm", group)
     with torch.no_grad():
         bnorm = _colnorm(rhs)
         z0 = rhs if M_inv is None else M_inv(rhs)
@@ -298,6 +318,7 @@ def cg_solve(
     fixed_iters: Optional[int] = None,
     layout: str = "col",
     implicit_diff: bool = True,
+    group=None,
 ):
     """Solve ``A x = b`` for symmetric positive-definite ``A`` given its matvec.
 
@@ -316,6 +337,9 @@ def cg_solve(
     the JAX package, ``return_info=True`` stays differentiable.
     ``implicit_diff=False``: a value solve, raising ``NotImplementedError``
     when ``b`` or ``x0`` requires grad with grad mode on.
+
+    ``group``: the rows of ``b`` (and of the matvec's input and output) are
+    this rank's shard of a system sharded over the group (module docstring).
     """
     if not implicit_diff:
         _no_gradient("cg_solve", b, x0)
@@ -325,8 +349,8 @@ def cg_solve(
     def raw(rhs, start):
         with torch.no_grad():
             if fixed_iters is not None:
-                return _cg_fixed(matvec, rhs, start, fixed_iters, M_inv, layout)
-            return _cg_raw(matvec, rhs, start, tol, max_iters, M_inv, layout)
+                return _cg_fixed(matvec, rhs, start, fixed_iters, M_inv, layout, group=group)
+            return _cg_raw(matvec, rhs, start, tol, max_iters, M_inv, layout, group)
 
     x, info = raw(bb, x0b)
     if implicit_diff:
@@ -334,8 +358,9 @@ def cg_solve(
     return (unsqueeze(x), info) if return_info else unsqueeze(x)
 
 
-def _refined(matvec_fast, matvec_exact, rhs, tol, inner_iters, max_restarts, M_inv, layout, state_dtype):
-    _, _colnorm, _bc = _reducers(layout)
+def _refined(matvec_fast, matvec_exact, rhs, tol, inner_iters, max_restarts, M_inv, layout, state_dtype,
+             group=None):
+    _, _colnorm, _bc = _reducers(layout, group)
     bnorm = _colnorm(rhs)
     stop = tol * torch.clamp_min(bnorm, torch.finfo(rhs.dtype).tiny)
     x = torch.zeros_like(rhs)
@@ -352,7 +377,7 @@ def _refined(matvec_fast, matvec_exact, rhs, tol, inner_iters, max_restarts, M_i
         # precision); keep the best iterate.
         if bool(torch.all(rnorm > 100.0 * torch.maximum(rnorm_best, stop))):
             break
-        d, _ = _cg_fixed(matvec_fast, r, None, inner_iters, M_inv, layout, state_dtype)
+        d, _ = _cg_fixed(matvec_fast, r, None, inner_iters, M_inv, layout, state_dtype, group)
         x = x + d
         r = rhs - matvec_exact(x)
         rnorm = _colnorm(r)
@@ -372,7 +397,7 @@ def _refined(matvec_fast, matvec_exact, rhs, tol, inner_iters, max_restarts, M_i
     # warm-started from the best iterate, so "mixed" is never worse than
     # "exact" in result, only in time (benchmarks/RESULTS_r5.md §12).
     if bool(torch.any(rnorm_best > stop)):
-        xf, info = _cg_raw(matvec_exact, rhs, x_best, tol, inner_iters * max_restarts, M_inv, layout)
+        xf, info = _cg_raw(matvec_exact, rhs, x_best, tol, inner_iters * max_restarts, M_inv, layout, group)
         better = info.residual_norm < rnorm_best
         x_best = torch.where(_bc(better), xf, x_best)
         rnorm_best = torch.minimum(info.residual_norm, rnorm_best)
@@ -393,6 +418,7 @@ def cg_solve_refined(
     layout: str = "col",
     state_dtype=None,
     implicit_diff: bool = True,
+    group=None,
 ):
     """Mixed-precision CG by iterative refinement (Carson–Higham).
 
@@ -413,7 +439,7 @@ def cg_solve_refined(
     solve, and gradients reach ``b`` and the tensors ``matvec_exact`` closes
     over, not ``matvec_fast``'s or ``M_inv``'s.  ``implicit_diff=False``: a
     value solve, raising ``NotImplementedError`` when ``b`` requires grad
-    with grad mode on.
+    with grad mode on.  ``group``: rows sharded, as in :func:`cg_solve`.
     """
     if not implicit_diff:
         _no_gradient("cg_solve_refined", b)
@@ -422,7 +448,7 @@ def cg_solve_refined(
     def raw(rhs):
         with torch.no_grad():
             return _refined(matvec_fast, matvec_exact, rhs, tol, inner_iters, max_restarts, M_inv, layout,
-                            state_dtype)
+                            state_dtype, group)
 
     x, rnorm, outer, fallback = raw(bb)
     if implicit_diff:

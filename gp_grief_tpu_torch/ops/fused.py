@@ -22,6 +22,11 @@ SPD to working precision (``ops.precond.check_whitening``).
 ``fused_cg_slq_segmented`` and GP-GRIEF's inline copy of it.  It reads the
 device once per probe chunk or CG segment, never once per iteration, and
 runs the Gauss quadrature in float64 on the host.
+
+``group=`` (the JAX package's ``axis_name``): the rows of every state are
+this rank's shard of a system sharded over a ``torch.distributed`` process
+group; the reductions are all-reduced, so every rank takes the same steps
+and reads the same numbers (``ops.cg``).
 """
 
 from __future__ import annotations
@@ -116,20 +121,22 @@ def _run_chunk(step, cg_state, Z: torch.Tensor, k: int, _colnorm, _bc):
     return cg_state, tuple(torch.stack(t) for t in zip(*outs))
 
 
-def fused_cg_slq_segment(op: Operator, cg_state, Z: torch.Tensor, lanczos_iters: int, *, freeze_rz=None):
+def fused_cg_slq_segment(op: Operator, cg_state, Z: torch.Tensor, lanczos_iters: int, *, freeze_rz=None,
+                         group=None):
     """Advance a CG state (rows) by ``lanczos_iters`` iterations while running
     a full ``R``-probe Lanczos pass on the same operator.
 
     ``Z``: the ``(R, m)`` probe block.  Returns ``(cg_state, slq_mean)``,
     ``slq_mean`` this chunk's SLQ estimate of ``log|A|`` (the mean over its
-    probes), from the quadrature on the device.
+    probes), from the quadrature on the device.  ``group``: rows sharded
+    (module docstring; ``Z`` is this rank's rows of the probes).
     """
-    _colsum, _colnorm, _bc = _reducers("bm")
+    _colsum, _colnorm, _bc = _reducers("bm", group)
     k = int(lanczos_iters)
     step = make_fused_cg_lanczos_step(op, _colsum, _colnorm, _bc, freeze_rz=freeze_rz)
     cg_state, (alphas, betas, alive) = _run_chunk(step, cg_state, Z, k, _colnorm, _bc)
     num_valid = torch.sum(alive.to(torch.int64), dim=0)
-    znorm2 = torch.sum(Z * Z, dim=1)
+    znorm2 = _colsum(Z * Z)
     vals = znorm2 * _slq_quadrature(alphas.T, betas[:-1].T, num_valid, k)
     return cg_state, torch.mean(vals)
 
@@ -147,6 +154,7 @@ def fused_cg_slq(
     cg_segment_iters: int = 50,
     fuse_probes: bool = True,
     verbose: bool = False,
+    group=None,
 ):
     """Solve ``A x = rhs`` by CG and estimate ``log|A|`` by SLQ on one
     operator, sharing its applications.
@@ -170,13 +178,17 @@ def fused_cg_slq(
     overcount the ones that did work: a row that converges early in a chunk
     or segment stays frozen (or, in a segment, keeps iterating) until that
     chunk or segment ends.
+
+    ``group``: ``rhs`` is this rank's rows of a system sharded over the
+    group, and ``generator`` draws this rank's rows of the probes (module
+    docstring); every rank returns the same log-det and iterations.
     """
     if num_probes <= 0:
         raise ValueError("num_probes must be positive")
     dtype, device = rhs.dtype, rhs.device
     m = rhs.shape[1]
     k = int(lanczos_iters)
-    _colsum, _colnorm, _bc = _reducers("bm")
+    _colsum, _colnorm, _bc = _reducers("bm", group)
 
     x0 = torch.zeros_like(rhs)
     rz0 = _colsum(rhs * rhs)
@@ -203,7 +215,7 @@ def fused_cg_slq(
         cg_out, (alphas, betas, alive) = _run_chunk(step, cg_in, Z, k, _colnorm, _bc)
         quad_in = torch.cat([alphas, betas, alive.to(dtype)], dim=1).cpu().numpy()
         a_h, b_h, alive_h = quad_in[:, :r], quad_in[:, r : 2 * r], quad_in[:, 2 * r :] != 0
-        total += _chunk_quadrature_total([a_h], [b_h], [alive_h], torch.sum(Z * Z, dim=1).cpu().numpy(), k)
+        total += _chunk_quadrature_total([a_h], [b_h], [alive_h], _colsum(Z * Z).cpu().numpy(), k)
         if fuse_probes:
             state = cg_out
             iters += k

@@ -14,6 +14,13 @@ Probes are Rademacher vectors drawn by :func:`rademacher`, the one draw
 function of the package, from an explicit ``torch.Generator``.  ``jax.random``
 and torch draw different bits, so a parity run replaces this function (tests
 monkeypatch it with NumPy draws that the JAX side is handed as well).
+
+``group=`` (the JAX package's ``axis_name``): the vectors' rows are sharded
+over the ranks of a ``torch.distributed`` process group, and every inner
+product and norm is all-reduced, so every rank runs the same recurrence.
+A rank draws only its own rows of each probe, from the generator it is
+given (JAX folds the device index into the key; here each rank passes its
+own generator).
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from gp_grief_tpu_torch.ops.cg import _reducers
+from gp_grief_tpu_torch.ops.cg import _group_sum, _reducers
 
 __all__ = ["LanczosResult", "lanczos", "lanczos_batched", "rademacher", "slq_logdet"]
 
@@ -49,6 +56,7 @@ def lanczos(
     *,
     full_reorth: bool = True,
     store_basis: bool = True,
+    group=None,
 ) -> LanczosResult:
     """Run ``k`` Lanczos steps of a symmetric operator from ``v0`` ``(m,)``;
     ``matvec`` maps ``(m, 1) → (m, 1)``.
@@ -57,14 +65,15 @@ def lanczos(
     (optionally) the orthonormal basis ``Q``.  Breakdown is masked: steps past
     it give zero columns and zero ``alpha``/``beta``, and ``num_valid`` counts
     the usable steps.  ``full_reorth`` (two passes against the stored basis)
-    requires ``store_basis``.
+    requires ``store_basis``.  ``group``: rows sharded (module docstring).
     """
     if full_reorth and not store_basis:
         raise ValueError("full_reorth requires store_basis=True")
     m = v0.shape[0]
     dtype, device = v0.dtype, v0.device
     eps = torch.finfo(dtype).eps
-    q = v0 / torch.sqrt(torch.sum(v0 * v0))
+    _sum = _group_sum(group)
+    q = v0 / torch.sqrt(_sum(torch.sum(v0 * v0)))
     q_prev = torch.zeros_like(q)
     beta_prev = torch.zeros((), dtype=dtype, device=device)
     alive = torch.ones((), dtype=torch.bool, device=device)
@@ -74,14 +83,14 @@ def lanczos(
         if store_basis:
             Qbuf[:, i] = torch.where(alive, q, torch.zeros_like(q))
         w = matvec(q[:, None])[:, 0]
-        alpha_i = torch.sum(w * q)
+        alpha_i = _sum(torch.sum(w * q))
         w = w - alpha_i * q - beta_prev * q_prev
         if full_reorth:
             # Orthogonalize against every stored vector (zeros beyond i are
             # inert); twice is enough (Parlett).
             for _ in range(2):
-                w = w - Qbuf @ (Qbuf.T @ w)
-        beta_i = torch.sqrt(torch.sum(w * w))
+                w = w - Qbuf @ _sum(Qbuf.T @ w)
+        beta_i = torch.sqrt(_sum(torch.sum(w * w)))
         scale = torch.abs(alpha_i) + beta_prev + 1.0
         broke = beta_i <= 100 * eps * scale
         q_next = torch.where(broke, torch.zeros_like(w), w / torch.where(beta_i == 0, torch.ones_like(beta_i), beta_i))
@@ -99,17 +108,18 @@ def lanczos(
     )
 
 
-def lanczos_batched(matvec, V0: torch.Tensor, k: int, *, layout: str = "col"):
+def lanczos_batched(matvec, V0: torch.Tensor, k: int, *, layout: str = "col", group=None):
     """``R`` independent Lanczos recurrences sharing each batched matvec.
 
     ``V0``: ``(m, R)`` start vectors (``layout="col"``) or ``(R, m)``
     (``layout="bm"``, each row a recurrence); ``matvec`` maps the block to a
-    block of the same layout.  No reorthogonalization.  Returns
-    ``(alphas (k, R), betas (k-1, R), num_valid (R,))``.
+    block of the same layout.  No reorthogonalization.  ``group``: rows
+    sharded (module docstring).  Returns ``(alphas (k, R), betas (k-1, R),
+    num_valid (R,))``.
     """
     if layout not in ("col", "bm"):
         raise ValueError("layout must be 'col' or 'bm'")
-    _colsum, _colnorm, _bc = _reducers(layout)
+    _colsum, _colnorm, _bc = _reducers(layout, group)
     dtype = V0.dtype
     eps = torch.finfo(dtype).eps
     R = V0.shape[1] if layout == "col" else V0.shape[0]
@@ -162,6 +172,7 @@ def slq_logdet(
     device=None,
     full_reorth: bool = False,
     layout: str = "col",
+    group=None,
 ) -> torch.Tensor:
     """Estimate ``log|A|`` for symmetric PD ``A`` by stochastic Lanczos
     quadrature: ``(1/R) Σ_r ‖z_r‖² Σ_j τ_j² log θ_j`` over Rademacher probes
@@ -169,22 +180,26 @@ def slq_logdet(
     ``layout="bm"``), each through ``lanczos_iters`` Lanczos steps, all
     probes batched through one matvec per step.  ``full_reorth`` runs one
     reorthogonalized recurrence per probe (small-``m`` accuracy checks; not
-    with ``layout="bm"``)."""
+    with ``layout="bm"``).  ``group``: ``m`` is this rank's row count of a
+    system sharded over the group; ``generator`` draws this rank's rows
+    (module docstring)."""
     if layout == "bm" and full_reorth:
         raise ValueError("layout='bm' does not support full_reorth")
     k = int(lanczos_iters)
+    _sum = _group_sum(group)
+
     if full_reorth:
         z = rademacher((num_probes, m), dtype=dtype, device=device, generator=generator)
         vals = []
         for zz in z:
-            res = lanczos(matvec, zz, k, full_reorth=True, store_basis=True)
+            res = lanczos(matvec, zz, k, full_reorth=True, store_basis=True, group=group)
             q = _slq_quadrature(res.alpha[None], res.beta[None], res.num_valid[None], k)[0]
-            vals.append(torch.sum(zz * zz) * q)
+            vals.append(_sum(torch.sum(zz * zz)) * q)
         return torch.mean(torch.stack(vals))
     shape = (m, num_probes) if layout == "col" else (num_probes, m)
     Z = rademacher(shape, dtype=dtype, device=device, generator=generator)
-    alphas, betas, num_valid = lanczos_batched(matvec, Z, k, layout=layout)
-    znorm2 = torch.sum(Z * Z, dim=0 if layout == "col" else 1)
+    alphas, betas, num_valid = lanczos_batched(matvec, Z, k, layout=layout, group=group)
+    znorm2 = _sum(torch.sum(Z * Z, dim=0 if layout == "col" else 1))
     return torch.mean(znorm2 * _slq_quadrature(alphas.T, betas.T, num_valid, k))
 
 

@@ -22,7 +22,7 @@ whose ``M = LLᵀ + σ²I`` whitens through :func:`lowrank_sqrt_ops_from_factor`
 from __future__ import annotations
 
 import math
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -53,10 +53,19 @@ def kron_deflation_sqrt_ops(
     lams: Sequence[torch.Tensor],
     idx: torch.Tensor,
     sigma2,
+    *,
+    kmv: Callable = kron_matvec_fast,
+    rows: Optional[Tuple[int, int]] = None,
 ):
     """``(M_inv, M_inv_sqrt, logdet_M)`` of the rank-p Kronecker deflation.
     ``M_inv_sqrt`` whitens the grid operator for CG
-    (``yᵀA⁻¹y = (M⁻½y)ᵀ(M⁻½AM⁻½)⁻¹(M⁻½y)``)."""
+    (``yᵀA⁻¹y = (M⁻½y)ᵀ(M⁻½AM⁻½)⁻¹(M⁻½y)``).
+
+    ``kmv(factors, v, precision=...)`` is the Kronecker matvec
+    (``kron_matvec_fast``).  ``rows=(lo, n)`` makes the operators act on the
+    lattice rows ``[lo, lo + n)`` only, with ``kmv`` mapping those rows to
+    those rows: the model-parallel form, whose ``kmv`` is
+    ``parallel.kron_matvec_sharded``."""
     Qs = tuple(Q.contiguous() for Q in Qs)
     # Kernel wrappers take contiguous operands only; Q.T is a strided view.
     QT = tuple(Q.T.contiguous() for Q in Qs)
@@ -70,18 +79,25 @@ def kron_deflation_sqrt_ops(
     # Flat index of each selected eigenpair on the eigen-lattice (C order).
     strides = [math.prod(sizes[d + 1 :]) for d in range(len(sizes))]
     flat = torch.sum(idx * torch.as_tensor(strides, dtype=idx.dtype, device=idx.device)[None, :], dim=1)
+    n_rows, sel = m, None
+    if rows is not None:  # the selected pairs that fall in the window
+        lo, n_rows = rows
+        mine = (flat >= lo) & (flat < lo + n_rows)
+        flat, sel = flat[mine] - lo, torch.nonzero(mine)[:, 0]
 
     def _apply(diag_fun):
         base = diag_fun(sigma2)
         coef = diag_fun(lam_p + sigma2) - base  # (p,)
+        if sel is not None:
+            coef = coef[sel]
 
         def op(v: torch.Tensor) -> torch.Tensor:
             squeeze = v.ndim == 1
             vv = v[:, None] if squeeze else v
-            z = kron_matvec_fast(QT, vv, precision="highest")  # eigen basis
-            u = torch.zeros((m, vv.shape[1]), dtype=z.dtype, device=z.device)
+            z = kmv(QT, vv, precision="highest")  # eigen basis
+            u = torch.zeros((n_rows, vv.shape[1]), dtype=z.dtype, device=z.device)
             u[flat] = z[flat] * coef[:, None]
-            out = base * vv + kron_matvec_fast(Qs, u, precision="highest")
+            out = base * vv + kmv(Qs, u, precision="highest")
             return out[:, 0] if squeeze else out
 
         return op

@@ -253,3 +253,48 @@ def test_cg_solve_refined_applies_the_exact_operator_once_per_restart(case):
     xs, info = tcg.cg_solve_refined(fast, counted, rhs, tol=args[0], inner_iters=20, max_restarts=args[2],
                                     layout="bm", state_dtype=args[5], return_info=True, implicit_diff=False)
     assert torch.equal(xs, x) and calls[0] == new_calls and info.iterations == 20 * outer
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_solvers_without_a_group_keep_their_bits(dtype):
+    """``group=None`` (the default) runs the arithmetic the solvers ran before
+    their ``group=`` hooks: ``cg_solve``, ``cg_segments``, ``slq_logdet`` and
+    ``fused_cg_slq`` against verbatim copies of the old code
+    (``tests/_torch_solvers_before_group.py``), bit for bit."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import _torch_solvers_before_group as old
+
+    from gp_grief_tpu_torch.ops import fused as tfused
+    from gp_grief_tpu_torch.ops import lanczos as tlz
+
+    rng = np.random.default_rng(5)
+    n = 48
+    A = rng.standard_normal((n, n))
+    A = torch.as_tensor(A @ A.T + n * np.eye(n), dtype=dtype)
+    b = torch.as_tensor(rng.standard_normal((3, n)), dtype=dtype)
+
+    def mv(v):
+        return v @ A.T
+
+    def gen():
+        return torch.Generator().manual_seed(11)
+
+    with torch.no_grad():
+        for layout, rhs in (("bm", b), ("col", b.T.contiguous())):
+            kw = dict(tol=1e-9, max_iters=200, layout=layout, return_info=True, implicit_diff=False)
+            op = mv if layout == "bm" else (lambda v: A @ v)
+            (x1, i1), (x0, i0) = tcg.cg_solve(op, rhs, **kw), old.cg_solve(op, rhs, **kw)
+            assert torch.equal(x1, x0) and i1.iterations == i0.iterations
+            assert torch.equal(i1.residual_norm, i0.residual_norm)
+        sk = dict(tol=1e-9, max_iters=200, segment_iters=6)
+        (x1, k1), (x0, k0) = tcg.cg_segments(mv, b, **sk), old.cg_segments(mv, b, **sk)
+        assert torch.equal(x1, x0) and k1 == k0
+        lk = dict(num_probes=5, lanczos_iters=15, dtype=dtype, device="cpu", layout="bm")
+        assert torch.equal(tlz.slq_logdet(mv, n, generator=gen(), **lk), old.slq_logdet(mv, n, generator=gen(), **lk))
+        fk = dict(num_probes=5, lanczos_iters=12, probe_chunk=2, cg_tol=1e-9, cg_iters=150, cg_segment_iters=7)
+        x1, l1, k1 = tfused.fused_cg_slq(mv, b[:1], generator=gen(), **fk)
+        x0, l0, k0 = old.fused_cg_slq(mv, b[:1], generator=gen(), **fk)
+        assert torch.equal(x1, x0) and l1 == l0 and k1 == k0

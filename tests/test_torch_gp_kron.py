@@ -136,8 +136,10 @@ def test_unported_surfaces_raise():
     k = gpt.make_kernel("rbf")
     cg = gpt.GPKroneckerRegression(xg, y, k, solver="cg", device="cpu")
     assert math.isfinite(cg.log_likelihood_segmented())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        gpt.GPKroneckerRegression(xg, y, k, solver="cg", mesh=object(), device="cpu")
+    # mesh= is ported (tests/test_torch_parallel.py); the schur solver refuses it, as in the JAX package.
+    mesh = gpt.parallel.make_mesh((1,), ("model",), device_type="cpu")
+    with pytest.raises(ValueError, match="mesh"):
+        gpt.GPKroneckerRegression(xg, y, k, solver="schur", mesh=mesh, device="cpu")
     with pytest.raises(ValueError, match="one response per grid point"):
         gpt.GPKroneckerRegression(xg, y[:-1], k, device="cpu")
     with pytest.raises(ValueError, match="columns"):

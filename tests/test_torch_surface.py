@@ -167,3 +167,81 @@ def test_compose_ops():
     composed_t = tops.op_shift(tops.op_scale(tops.op_product([a, tops.op_sum([a, b])]), 0.5), 2.0)(v)
     composed_j = jops.op_shift(jops.op_scale(jops.op_product([ja, jops.op_sum([ja, jb])]), 0.5), 2.0)(jv)
     np.testing.assert_allclose(composed_t.numpy(), np.asarray(composed_j), rtol=1e-13)
+
+
+# gp_grief_tpu.parallel names the port does not export, each recorded in
+# ROADMAP.md: jax.sharding's partition spec and sharding (no torch meaning)
+# and the windowed plans' builder.
+PARALLEL_DEPARTURES = {"P", "NamedSharding", "build_sharded_windowed_interp"}
+
+
+def test_parallel_namespace_matches_jax():
+    import gp_grief_tpu.parallel as jpar
+    import gp_grief_tpu_torch.parallel as tpar
+
+    assert sorted(set(jpar.__all__) - PARALLEL_DEPARTURES) == sorted(tpar.__all__)
+    for name in tpar.__all__:
+        assert getattr(tpar, name) is not None
+
+
+def test_build_sharded_interp_splits_the_padded_rows():
+    """Each block's plan is the plan of its rows: the blocks' Wᵀ sum to the
+    whole padded set's, as the JAX package's stacked plans do."""
+    import gp_grief_tpu_torch.parallel as tpar
+    from gp_grief_tpu_torch.ops.interp import build_interp_plan, interp_weights
+    from gp_grief_tpu_torch.ops.cuda.interp import interp_wt
+
+    rng = np.random.default_rng(6)
+    x = rng.uniform(0, 2, (101, 2))
+    xg = [np.linspace(-0.1, 2.1, 7)] * 2
+    xp, _ = tpar.pad_to_multiple(x, 4)
+    plans = tpar.build_sharded_interp(xp, xg, 4)
+    u = torch.as_tensor(rng.standard_normal((3, xp.shape[0])))
+    whole = interp_wt(build_interp_plan(interp_weights(xp, xg)), u)
+    parts = sum(interp_wt(pl, u[:, k * 26 : (k + 1) * 26]) for k, pl in enumerate(plans))
+    np.testing.assert_allclose(parts.numpy(), whole.numpy(), rtol=1e-12, atol=1e-12)
+    one = tpar.build_sharded_interp(xp, xg, 4, rank=2)
+    np.testing.assert_array_equal(interp_wt(one, u[:, 52:78]).numpy(), interp_wt(plans[2], u[:, 52:78]).numpy())
+
+
+@pytest.mark.parametrize("kind", ["grief", "ski"])
+def test_params_from_jax_carries_the_sharded_models(kind):
+    """The JAX package's sharded models' leaves load into the port's sharded
+    models (a one-rank mesh here) under the single-device leaf names, and
+    both compute the same NLML.  SKI takes full-rank deflation (r = M), which
+    makes its whitened SLQ term exactly zero, so its NLML is the same
+    whatever the probes."""
+    import jax
+
+    import gp_grief_tpu as gpx
+    import gp_grief_tpu.parallel as jpar
+    import gp_grief_tpu_torch as gpt
+    from gp_grief_tpu_torch.convert import params_from_jax
+
+    rng = np.random.default_rng(4)
+    mesh = jpar.make_mesh((2,), ("data",), devices=jax.devices()[:2])
+    if kind == "grief":
+        x = rng.uniform(0, 1, (90, 2))
+        y = np.sin(3 * x[:, 0]) + 0.1 * rng.standard_normal(90)
+        grid = gpx.InducingGrid.build(x, mbar=6)
+        kw = dict(n_eigs=10, noise_var=0.2, dim_noise_var=1e-12)
+        jm = jpar.ShardedGPGriefModel(x, y, [gpx.make_kernel("rbf", lengthscale=0.5)] * 2, grid, mesh=mesh, **kw)
+        jm.optimize(optimizer="adam", max_iters=3, learning_rate=0.05)
+        tm = gpt.parallel.ShardedGPGriefModel(x, y, [gpt.make_kernel("rbf", lengthscale=0.5)] * 2,
+                                              gpt.InducingGrid.build(x, mbar=6), device="cpu", **kw)
+        tol = 1e-10
+    else:
+        x = rng.uniform(0, 2, (96, 2))
+        y = np.sin(2 * x[:, 0]) * np.cos(x[:, 1]) + 0.1 * rng.standard_normal(96)
+        xg = [np.linspace(-0.1, 2.1, 6)[:, None]] * 2
+        kw = dict(noise_var=0.3, num_probes=4, lanczos_iters=10, cg_iters=200, cg_tol=1e-10, precond_rank=36)
+        jm = jpar.ShardedGPSKIRegression(x, y, gpx.make_kernel("rbf", lengthscale=0.6), xg, mesh=mesh, **kw)
+        jm.params = {**jm.params, "log_noise": jm.params["log_noise"] - 0.4}
+        tm = gpt.parallel.ShardedGPSKIRegression(x, y, gpt.make_kernel("rbf", lengthscale=0.6), xg, device="cpu",
+                                                 **kw)
+        tol = 1e-8
+    leaves = dict(zip(jm._param_leaf_names(), [np.asarray(v) for v in jax.tree_util.tree_leaves(jm.params)]))
+    assert sorted(leaves) == sorted(tm.state_dict())
+    tm.load_state_dict(params_from_jax(leaves))
+    np.testing.assert_array_equal(tm.parameters, jm.parameters)
+    assert tm.log_likelihood() == pytest.approx(jm.log_likelihood(), rel=tol)
