@@ -35,7 +35,10 @@ non-zero without printing the final line:
              plain version on the card, both grades, at the grid
              configurations' lattices, one d=5 lattice and one ragged d=2
              lattice; CUDA-event times of the kernel, the plain version and
-             the port's cyclic torch.matmul chain, beside the bound.
+             the port's cyclic torch.matmul chain, beside the bound, and the
+             device time of each kernel member (``members``).  Then SKI's
+             lattice Q/Qᵀ (X3, the exact grade at (I_8 ⊗ 32^4)): its output's
+             sha256 against X3_DIGEST, and its times.
 7. grid    — the two grid configurations (GRID_CONFIGS) end to end through
              ``GPKroneckerRegression``: float64 schur NLML against a recorded
              float64 JAX run, float32 CG NLML against float32 schur, the
@@ -60,8 +63,9 @@ non-zero without printing the final line:
              as a user calls it, profiled (wall, device time, idle share,
              launches); plan build times; LOVE on ski100k_data.
 
-10. kron_axes — K6-K8 against their plain versions at the 32⁵ shapes, and K7
-             as the operator of a float32 CG solve at grid32x5_mixed.
+10. kron_axes — K6-K8 against their plain versions at the 32⁵ shapes (with
+             each kernel member's device time), and K7 as the operator of a
+             float32 CG solve at grid32x5_mixed.
 11. grid_train — both grid configurations trained through CG: the float32
              NLML gradient (the CG implicit gradient) against the float64
              gradient with the Schur solve, then 5 Adam steps twice from the
@@ -250,6 +254,17 @@ def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Device time of one call of ``fn`` in milliseconds: the ``torch.profiler``
     sum of its kernels over ``reps`` calls, divided by ``reps``.  Beside
     :func:`cuda_ms` it shows how much of a call's event time is the host's."""
+    return device_split(fn, reps, warmup)[0]
+
+
+# csrc/kron_pass.cu's members, by the kernel names the profiler reports.
+KRON_MEMBERS = (("kron_exact_tile_kernel", "exact_tile"), ("kron_mma_tile_kernel", "mma_tile"),
+                ("kron_tile_kernel", "fp32_tile"), ("kron_wide_kernel", "wide"))
+
+
+def device_split(fn, reps: int = 20, warmup: int = 3) -> tuple:
+    """:func:`device_ms`, and the device ms of one call by Kronecker member
+    (KRON_MEMBERS; "other" for every other kernel)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -260,7 +275,11 @@ def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return device_items(prof)[0] / reps
+    members = {}
+    for name, ms, _ in device_rows(prof):
+        member = next((m for k, m in KRON_MEMBERS if k in name), "other")
+        members[member] = members.get(member, 0.0) + ms / reps
+    return device_items(prof)[0] / reps, members
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -916,7 +935,10 @@ def phase_kron(card: str) -> dict:
                 check(tuple(got.shape) == (M, B) and bool(torch.isfinite(got).all()), f"{kname} {label}: bad output")
                 it = iter(range(1 << 30))
                 ms = cuda_ms(lambda: fn(fs, vs[next(it) % nv], **kw))
-                dev_ms = device_ms(lambda: fn(fs, vs[next(it) % nv], **kw))
+                dev_ms, members = device_split(lambda: fn(fs, vs[next(it) % nv], **kw))
+                before = fn.exact_tile_launches
+                fn(fs, vs[0], **kw)
+                exact_passes = fn.exact_tile_launches - before
                 plain_ms = cuda_ms(lambda: tk.kron_chain_ref(fs, vs[next(it) % nv], fast=fast))
                 chain_ms = cuda_ms(lambda: kron_matvec_fast(fs, vs[next(it) % nv], precision=precision, impl="xla"))
                 library_ms = cuda_ms(lambda: kron_einsum(fs, vs[next(it) % nv]))
@@ -924,7 +946,8 @@ def phase_kron(card: str) -> dict:
             emit({"phase": "kron", "kernel": kname, "shape": label, "sizes": list(sizes), "B": B,
                   "precision": precision, "passes": len(tk._hopper_plan(list(sizes), list(sizes), B)),
                   "rel_err_vs_plain": rel, "tol": KRON_TOL[precision], "rel_err_vs_exact": rel_exact,
-                  "max_abs_err": abs_err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "chain_ms": chain_ms,
+                  "max_abs_err": abs_err, "ms": ms, "device_ms": dev_ms, "members": members,
+                  "exact_tile_passes": exact_passes, "plain_ms": plain_ms, "chain_ms": chain_ms,
                   "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                   "gb_per_s": 2 * M * B * 4 / (ms * 1e-3) / 1e9,
                   "distinct_vectors": nv, "card": card})
@@ -938,7 +961,71 @@ def phase_kron(card: str) -> dict:
                              bound_ms=bound_ms, bound_by=bound_by)
         del fs, vs
         torch.cuda.empty_cache()
+    summary["kron_slab"]["x3"] = phase_kron_x3(card)
     return summary
+
+
+# sha256 of the exact grade's float32 output at SKI's lattice Q/Qᵀ shape (X3:
+# (I_8 ⊗ 32^4), the inputs of x3_operands), as recorded on an H100 before the
+# tensor-core tile member was added; tests/test_torch_kron_cuda.py holds the
+# same digest.  The exact grade keeps these bits.
+X3_DIGEST = "264a185a3895fafbb9e264b2dee9f05f525616b2233747ca012eb683bc1ce922"
+
+
+def x3_operands():
+    """(I_8, Q_1..Q_4) with Q_d orthogonal 32 x 32 and v (8·32^4,), float32
+    on the card, drawn from a CPU generator seeded 4."""
+    import torch
+
+    g = torch.Generator().manual_seed(4)
+    Qs = [torch.linalg.qr(torch.randn((32, 32), generator=g, dtype=torch.float64))[0].float() for _ in range(4)]
+    fs = [torch.eye(8).cuda(), *[Q.contiguous().cuda() for Q in Qs]]
+    v = torch.randn((8 * 32**4,), generator=g, dtype=torch.float64).float().cuda()
+    return fs, v
+
+
+def phase_kron_x3(card: str) -> dict:
+    """X3 through kron_matvec_fast (K2 at the exact grade): the output's
+    sha256 against X3_DIGEST, the gaps to the plain version and to float64,
+    and the times as phase 6 takes them."""
+    import hashlib
+
+    import torch
+    from gp_grief_tpu_torch.ops.cuda import kron as tk
+    from gp_grief_tpu_torch.ops.kron_fast import X3, kron_matvec_fast
+
+    fs, v = x3_operands()
+    M = int(v.numel())
+    nv = max(1, -(-(128 << 20) // (4 * M)))
+    g = torch.Generator(device="cpu").manual_seed(0)
+    vs = [v] + [torch.randn((M,), generator=g).cuda() for _ in range(nv - 1)]
+    run = lambda x: kron_matvec_fast(fs, x, precision=X3)  # noqa: E731
+    with torch.no_grad():
+        before = tk.kron_matvec_slab.exact_tile_launches
+        got = run(v)
+        torch.cuda.synchronize()
+        exact_passes = tk.kron_matvec_slab.exact_tile_launches - before
+        digest = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
+        plain = tk.kron_chain_ref(fs, v[:, None])[:, 0]
+        exact = tk.kron_chain_ref([f.double() for f in fs], v.double()[:, None])[:, 0]
+        rel = float(torch.linalg.norm((got - plain).double()) / torch.linalg.norm(plain.double()))
+        rel_exact = float(torch.linalg.norm(got.double() - exact) / torch.linalg.norm(exact))
+        it = iter(range(1 << 30))
+        ms = cuda_ms(lambda: run(vs[next(it) % nv]))
+        dev_ms, members = device_split(lambda: run(vs[next(it) % nv]))
+        plain_ms = cuda_ms(lambda: tk.kron_chain_ref(fs, vs[next(it) % nv][:, None]))
+        library_ms = cuda_ms(lambda: kron_einsum(fs, vs[next(it) % nv]))
+    bound_ms, bound_by = kron_bound([8] + [32] * 4, 1, "highest")
+    out = {"sha256": digest, "want_sha256": X3_DIGEST, "rel_err_vs_plain": rel, "rel_err_vs_exact": rel_exact,
+           "max_abs_err": float((got - plain).abs().max()), "ms": ms, "device_ms": dev_ms, "members": members,
+           "exact_tile_passes": exact_passes, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    emit({"phase": "kron", "kernel": "kron_slab", "shape": "x3_I8_32x4", "precision": X3, **out, "card": card})
+    check(digest == X3_DIGEST, f"X3: the exact grade's bits moved (sha256 {digest})")
+    check(rel <= KRON_TOL["highest"] and rel_exact <= 1e-5, f"X3: rel err {rel:.3e} / {rel_exact:.3e}")
+    del fs, v, vs, got, plain, exact
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1164,10 +1251,9 @@ SKI_KERNEL_SHAPES = [
 ]
 
 
-def device_items(prof, top=10):
-    """Device time of a ``torch.profiler`` run: the total and the ``top``
-    largest kernels (device events only; the CPU-side ops that launched them
-    report the same time and would count it twice)."""
+def device_rows(prof) -> list:
+    """``(kernel name, device ms, calls)`` of every device item of a
+    ``torch.profiler`` run."""
     rows = []
     for ev in prof.key_averages():
         if not str(ev.device_type).endswith("CUDA"):
@@ -1177,6 +1263,14 @@ def device_items(prof, top=10):
             dev = getattr(ev, "self_cuda_time_total", 0)
         if dev > 0:
             rows.append((ev.key, dev / 1e3, ev.count))
+    return rows
+
+
+def device_items(prof, top=10):
+    """Device time of a ``torch.profiler`` run: the total and the ``top``
+    largest kernels (device events only; the CPU-side ops that launched them
+    report the same time and would count it twice)."""
+    rows = device_rows(prof)
     rows.sort(key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
     return total, [{"name": k[:90], "ms": ms, "count": c} for k, ms, c in rows[:top]]
@@ -1537,6 +1631,7 @@ def phase_kron_axes(card: str) -> dict:
     the bound."""
     import torch
     from gp_grief_tpu_torch.ops.cuda import kron as tk
+    from gp_grief_tpu_torch.ops.cuda import kron_axes as ka
 
     summary = {}
     for label, kname, shape, precisions, fshapes, lead, B, run, plain, library, chain in axes_cases():
@@ -1567,6 +1662,11 @@ def phase_kron_axes(card: str) -> dict:
                 del got, again, ref, exact
                 it = iter(range(1 << 30))
                 ms = cuda_ms(lambda: run(xs[next(it) % nv], precision))
+                dev_ms, members = device_split(lambda: run(xs[next(it) % nv], precision))
+                fn = getattr(ka, kname)  # K6 has no tile pass and no exact_tile_launches
+                before = getattr(fn, "exact_tile_launches", 0)
+                run(xs[0], precision)
+                exact_passes = getattr(fn, "exact_tile_launches", 0) - before
                 plain_ms = cuda_ms(lambda: plain(xs[next(it) % nv], fast))
                 lib_ms = cuda_ms(lambda: library(xs[next(it) % nv]))
                 chain_ms = cuda_ms(lambda: chain(xs[next(it) % nv])) if chain else None
@@ -1575,7 +1675,8 @@ def phase_kron_axes(card: str) -> dict:
             emit({"phase": "kron_axes", "kernel": kname, "shape": label, "input": list(shape), "factors": fshapes,
                   "precision": precision, "passes": len(plan), "rel_err_vs_plain": rel, "tol": KRON_TOL[precision],
                   "rel_err_vs_f64": rel_exact, "f64_tol": 2e-2 if fast else 1e-5, "max_abs_err": abs_err,
-                  "two_launches_identical": identical, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                  "two_launches_identical": identical, "ms": ms, "device_ms": dev_ms, "members": members,
+                  "exact_tile_passes": exact_passes, "plain_ms": plain_ms, "library_ms": lib_ms,
                   "library_rel_err_vs_f64": lib_rel, **chained, "bound_ms": bound_ms, "bound_by": bound_by,
                   "gb_per_s": 4 * (n_in + n_out) / (ms * 1e-3) / 1e9, "distinct_inputs": nv, "card": card})
             check(finite, f"{kname} {label} {precision}: bad output")
@@ -1587,8 +1688,8 @@ def phase_kron_axes(card: str) -> dict:
             entry["max_abs_err"] = max(entry["max_abs_err"], abs_err)
             # The line's times: each kernel's first 32^5 case at the exact grade.
             if precision == "highest" and "ms" not in entry:
-                entry.update({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                              "shape": label, "library_ms": lib_ms, **chained})
+                entry.update({"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                              "bound_by": bound_by, "shape": label, "library_ms": lib_ms, **chained})
         del xs
         torch.cuda.empty_cache()
     return summary
@@ -2664,6 +2765,13 @@ def main() -> int:
     def reset():
         for fn in counters:
             fn.launches = 0
+            if hasattr(fn, "exact_tile_launches"):
+                fn.exact_tile_launches = 0
+
+    def exact_counts(entry, fn, key="exact_tile_launches"):
+        # Of the entry's launches, those on the exact grade's tile member.
+        if hasattr(fn, "exact_tile_launches"):
+            entry[key] = fn.exact_tile_launches
 
     entries = []
     # Phases 4-5 and the configs phase: the GP-GRIEF path (and sine1d's exact
@@ -2694,7 +2802,8 @@ def main() -> int:
                         "replaces": replaces, "launches": fn.launches, "max_abs_err": k["max_abs_err"],
                         "ms": k["ms"], "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
                         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": k["library_ms"],
-                        "chain_ms": k["chain_ms"]})
+                        "chain_ms": k["chain_ms"], **({"x3": k["x3"]} if "x3" in k else {})})
+        exact_counts(entries[-1], fn)
 
     # Phase 9: the SKI path.  The float64 runs (parity, and the float32 runs'
     # yardstick) come first; the launches count the float32 runs alone.
@@ -2729,7 +2838,8 @@ def main() -> int:
                         "replaces": replaces, "launches": fn.launches, "max_abs_err": k["max_abs_err"],
                         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                         "bound_by": k["bound_by"], "library_ms": k["library_ms"], "shape": k["shape"],
-                        **({"chain_ms": k["chain_ms"]} if "chain_ms" in k else {})})
+                        "device_ms": k["device_ms"], **({"chain_ms": k["chain_ms"]} if "chain_ms" in k else {})})
+        exact_counts(entries[-1], fn)
 
     # Phases 11-12: training through the iterative solvers (the grid model's CG
     # implicit gradient, SKI's BBMM surrogates).
@@ -2743,6 +2853,7 @@ def main() -> int:
           "the kernels line's entries are out of the counters' order")
     for entry, fn in zip(entries, counters):
         entry["training_launches"] = fn.launches
+        exact_counts(entry, fn, "training_exact_tile_launches")
     for fn in (kron_matvec_slab, kron_matvec_fused, interp_wt, wtw_stencil):
         check(fn.launches > 0, f"the training phases never launched {fn.__name__}")
 

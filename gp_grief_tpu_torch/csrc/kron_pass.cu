@@ -15,31 +15,51 @@
 //   K8 _tail3_pass :525, _tail2_pass :590.
 // Their pass structure (lane width 128, K ⊗ I_G widening, an explicit
 // 1024-wide K_{d-1} ⊗ K_d pair matrix, VMEM budgets, hi/lo bf16 splits)
-// follows TPU rules and is not carried over.  Three members here.
+// follows TPU rules and is not carried over.  Four members here.
 //
-// kron_tile_kernel, for groups of up to three axes of at most 64 points, at
-// the exact grade (and at the fast grade where the mma member does not take
-// the group).
-//   A block stages the group's full extent times P trailing columns, and R
-//   consecutive rows of `pre` when P covers the whole trailing extent (the R
-//   rows are then one contiguous run), in shared memory with the factors
-//   beside it, and contracts the axes one after another in place.  Each
-//   thread takes whole fibres into registers, so a fibre is read before any
-//   of its outputs is written; each output is one FMA chain over k = 0..n-1.
-//   What bounds it: bytes.  At 32x32 a pass does 2·(32+32) = 128 FLOP per
-//   element against 8 bytes moved, 16 FLOP/byte, under FP32's ridge of
-//   67e12 / 3.35e12 = 20; in practice the FMA chains, their loads from
-//   shared memory and the index arithmetic keep it at 4-5x that bound, which
-//   is why the fast grade moved to kron_mma_tile_kernel.  The exact grade
-//   stays here, FP32 FMA chains in a fixed order (its bits are held by
-//   tests/test_torch_kron_cuda.py).  What the design does about the bytes:
-//   row batches give every thread of a 256-thread block two fibres where
-//   one row has only 32 (tail2_pass: R = 16, a 76 KB block), a tile of at
-//   most 113 KB keeps two blocks resident on an SM so that one block's
-//   loads run under the other's contraction, and the grid is as many blocks
-//   as the SMs hold, each staging its factors once and looping over its
-//   rows.  Tiles over 113 KB (K2's first pass at 32^5, tail3_pass: 144 KB)
-//   keep R = 1 and 512 threads.
+// kron_exact_tile_kernel, the exact grade's tile member: groups of up to three
+//   axes of at most 64 points (and at most 256 outputs).  A tile is P
+//   trailing columns (or none: post = 1) and R rows of `pre`; its input is
+//   `units`, each one device-memory row of the innermost axis (post = 1) or
+//   that axis' n x P block, consecutive in memory.  Persistent blocks of 256
+//   threads walk their tiles' units in chunks through a two-stage ring filled
+//   by 16-byte cp.async (4-byte where rows are not 16-byte aligned,
+//   zero-filled at ragged edges); the copies run one chunk ahead across
+//   tiles, so the next tile's first chunk lands while this tile's middle and
+//   outer axes are summed.  The innermost axis is contracted as its chunk is
+//   read out of the ring, into T (the tile after that contraction, R x E_0
+//   [x E_1] x inner, E = max(n, o)); a middle axis (g = 3) in place in T; the
+//   outermost straight to device memory (g = 1: the innermost one is also
+//   the outermost).  So a 32^3 tile (tail3_pass, K2's first pass at 32^5)
+//   holds 128 KB of T, 12 KB of factors and two 36 KB stages, not a second
+//   raw tile.  Every contraction is register-blocked: a task is four fibres
+//   (four neighbouring columns, or four rows) x one 8-row slice of the
+//   factor, kept transposed (K^T[k][o]) in shared memory, so each k reads one
+//   float4 of x and two of K^T for 32 FMAs; the S slices of a fibre group are
+//   neighbouring lanes of one warp (S a power of two), which all read the
+//   group (__syncwarp) before any writes it back in place.  Task indices
+//   decode once per task; the copies' by shifts and masks.  Landed rows are
+//   an odd number of float4s apart, so the four-row reads fall in distinct
+//   banks; the column reads of a quarter-warp are consecutive float4s.  Each
+//   output is one __fmaf_rn chain over k = 0..n-1 in order, from 0 -- the
+//   chain of the member this one replaced, so the exact grade keeps its bits
+//   (tests/test_torch_kron_cuda.py's X3_DIGEST).  What bounds it: at 32^3 a
+//   3-axis pass does 96 FMA per element against 8 bytes moved, 0.10 ms of
+//   FP32 issue at 32^5 beside 0.08 ms of bytes; 2-axis passes meet both
+//   floors at about 0.08 ms.  Measured on an H100 it runs at 2-3.4x the byte
+//   bound with its FMA loop issuing on about half the cycles; neither loads,
+//   stores, shared-memory reads nor occupancy move it (PERF.md), and half
+//   the FFMAs in the SASS read two registers of one bank parity.
+//   No atomics and no split sum: two launches give the same bits.
+//
+// kron_tile_kernel, the FP32 tile member of the fast grade, where the mma
+//   member does not take the group (a lone innermost axis, more than 128
+//   columns, a tile over shared memory).  A block stages the group's full
+//   extent times P trailing columns, and R consecutive rows of `pre` when P
+//   covers the whole trailing extent, in shared memory with the factors
+//   beside it, and contracts the axes one after another in place, a thread
+//   taking whole fibres into registers (two at a time); each output is one
+//   FMA chain over k = 0..n-1 on bf16-rounded operands.
 //
 // kron_mma_tile_kernel, the fast grade's tile member (K2 at "default", and
 //   the fast-grade tile passes of K3, K7 and K8).  The same groups as
@@ -87,9 +107,10 @@
 //
 // Grades (template parameter FAST):
 //   exact: float32 accuracy on the operands as given (the JAX reference's
-//          HIGHEST): FP32 FMA in the tile member, 3xTF32 in the wide one.
-//          Two launches, and this member before and after the mma member
-//          was added, give the same bits.
+//          HIGHEST): FP32 FMA chains in the exact tile member, 3xTF32 in
+//          the wide one.  Two launches, and the tile passes before and after
+//          the mma member was added and the exact member redesigned, give
+//          the same bits.
 //   fast:  every operand (factor entries and the vector entering each
 //          contraction) rounded to bf16, products accumulated in f32.  The
 //          result of a pass may be stored as bf16 (out_bf16), which rounds it
@@ -134,9 +155,8 @@ template <> __device__ __forceinline__ float from_f32<float>(float v) { return v
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
-template <bool FAST> __device__ __forceinline__ float grade(float v) {
-  return FAST ? __bfloat162float(__float2bfloat16_rn(v)) : v;
-}
+// The fast grade's operand rounding.
+__device__ __forceinline__ float bf16_round(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
 
 // ---------------------------------------------------------------------------
 // The tile member.
@@ -227,7 +247,7 @@ __device__ __forceinline__ int fibre_base(const TileArgs& a, const int* cur, int
   return base + f * a.row_tile;
 }
 
-template <bool FAST, int MAXN, typename XT, typename OT>
+template <int MAXN, typename XT, typename OT>
 __global__ void __launch_bounds__(TILE_MAX_THREADS)
 kron_tile_kernel(const XT* __restrict__ x, OT* __restrict__ out, TileArgs a) {
   extern __shared__ __align__(16) float smem[];
@@ -240,7 +260,7 @@ kron_tile_kernel(const XT* __restrict__ x, OT* __restrict__ out, TileArgs a) {
     const int n = a.n[ax], np = a.npad[ax], cnt = a.o[ax] * np;
     for (int e = tid; e < cnt; e += nth) {
       const int r = e / np, c = e % np;
-      Ks[e] = c < n ? grade<FAST>(K[static_cast<int64_t>(r) * n + c]) : 0.f;
+      Ks[e] = c < n ? bf16_round(K[static_cast<int64_t>(r) * n + c]) : 0.f;
     }
   }
 
@@ -299,8 +319,8 @@ kron_tile_kernel(const XT* __restrict__ x, OT* __restrict__ out, TileArgs a) {
         float r0[MAXN], r1[MAXN];
 #pragma unroll
         for (int k = 0; k < MAXN; ++k) {
-          r0[k] = k < n ? grade<FAST>(tile[b0 + k * st]) : 0.f;
-          r1[k] = (k < n && has1) ? grade<FAST>(tile[b1 + k * st]) : 0.f;
+          r0[k] = k < n ? bf16_round(tile[b0 + k * st]) : 0.f;
+          r1[k] = (k < n && has1) ? bf16_round(tile[b1 + k * st]) : 0.f;
         }
         for (int oi = 0; oi < no; ++oi) {
           const float4* Kr = reinterpret_cast<const float4*>(Ks + oi * np);
@@ -341,10 +361,10 @@ kron_tile_kernel(const XT* __restrict__ x, OT* __restrict__ out, TileArgs a) {
   }
 }
 
-template <bool FAST, int MAXN, typename XT, typename OT>
+template <int MAXN, typename XT, typename OT>
 int launch_tile(const void* x, void* out, const TileArgs& a, int smem, cudaStream_t stream) {
   static LaunchCache cache;
-  auto kern = kron_tile_kernel<FAST, MAXN, XT, OT>;
+  auto kern = kron_tile_kernel<MAXN, XT, OT>;
   const int threads = smem <= TWO_BLOCK_SMEM ? TILE_THREADS : TILE_MAX_THREADS;
   int grid = 0;
   const cudaError_t err = resident_grid(kern, cache, threads, smem, (a.pre + a.R - 1) / a.R * a.ptiles, grid);
@@ -353,10 +373,401 @@ int launch_tile(const void* x, void* out, const TileArgs& a, int smem, cudaStrea
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool FAST, typename XT, typename OT>
+template <typename XT, typename OT>
 int tile_by_width(const void* x, void* out, const TileArgs& a, int smem, int maxn, cudaStream_t s) {
-  return maxn <= 32 ? launch_tile<FAST, 32, XT, OT>(x, out, a, smem, s)
-                    : launch_tile<FAST, 64, XT, OT>(x, out, a, smem, s);
+  return maxn <= 32 ? launch_tile<32, XT, OT>(x, out, a, smem, s) : launch_tile<64, XT, OT>(x, out, a, smem, s);
+}
+
+// ---------------------------------------------------------------------------
+// The exact grade's tile member: the innermost axis contracted as its rows
+// land, the middle one in place, the outermost one on its way out.
+// ---------------------------------------------------------------------------
+
+constexpr int EX_THREADS = 256;
+constexpr int EX_FIB = 4;  // fibres a lane sums: four columns, or four rows, read as float4s
+constexpr int EX_OUT = 8;  // outputs a lane sums: one 8-row slice of a factor
+
+struct ExactArgs {
+  const float* K[3];
+  int g, n[3], o[3];
+  int E0, E1;      // slots of axes 0 and 1 in T: max(n, o), room to contract in place
+  int lgS[3];      // log2 of each factor's 8-row output slices
+  int kld[3];      // row length of each transposed factor K^T (n x 8S) in shared memory
+  int koff[3];     // float offsets of the K^T
+  int64_t pre, post, ptiles, ntiles;
+  int P, R;        // columns and rows of pre a tile takes
+  bool rows;       // post == 1: the innermost axis is contiguous (a unit is one row of it)
+  int nlast;       // n[g-1]
+  int rpu;         // device-memory rows of a unit: 1 (rows) or n[g-1] (a unit is n[g-1] x P)
+  int ls;          // floats between landed rows
+  int nurow;       // units in one row of pre: prod n[0..g-2]
+  int cu;          // units a chunk
+  int chunks;      // chunks a tile
+  int lgp;         // log2 of the copies one device-memory row takes, padded to a power of two
+  bool copy16;     // 16-byte copies (else 4-byte)
+  bool tight;      // columns, P not a multiple of 4: T packs a unit's o[g-1] x P outputs
+  int inner;       // T floats of a unit's slot: o[g-1] x ls (columns), o[g-1] x P rounded to 4
+                   // (tight), o[g-1] rounded to 4 (rows)
+  int tstride0;    // T floats between slots of axis 0: E1 x inner (g = 3) or inner (g = 2)
+  int t_off, ring_off, stage;  // float offsets of T and of the ring; floats of one stage
+  bool same_units; // every E equals its n: a unit's slot in T is its index
+};
+
+// acc[f][j] = sum_k K^T[k][j] x_f[k]: one FMA chain per output, k = 0..n-1
+// in order (the exact grade's chain).  Columns: fibre f at x + f, its
+// element k at x + k * ks, so one float4 gives the four fibres' element k.
+__device__ __forceinline__ void chains_cols(float (&acc)[EX_FIB][EX_OUT], const float* x, int ks, const float* kt,
+                                            int kld, int n) {
+#pragma unroll 4
+  for (int k = 0; k < n; ++k) {
+    const float4 xv = *reinterpret_cast<const float4*>(x + k * ks);
+    const float4 k0 = *reinterpret_cast<const float4*>(kt + k * kld);
+    const float4 k1 = *reinterpret_cast<const float4*>(kt + k * kld + 4);
+    const float xs[EX_FIB] = {xv.x, xv.y, xv.z, xv.w};
+    const float kv[EX_OUT] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
+#pragma unroll
+    for (int f = 0; f < EX_FIB; ++f)
+#pragma unroll
+      for (int j = 0; j < EX_OUT; ++j) acc[f][j] = __fmaf_rn(kv[j], xs[f], acc[f][j]);
+  }
+}
+
+// The same chains over rows: fibre f at x + f * fs, contiguous along k, so
+// one float4 gives four of its elements.
+__device__ __forceinline__ void chains_rows(float (&acc)[EX_FIB][EX_OUT], const float* x, int fs, const float* kt,
+                                            int kld, int n) {
+  int k = 0;
+  for (; k + 4 <= n; k += 4) {
+    float xr[EX_FIB][4];
+#pragma unroll
+    for (int f = 0; f < EX_FIB; ++f) {
+      const float4 v = *reinterpret_cast<const float4*>(x + f * fs + k);
+      xr[f][0] = v.x, xr[f][1] = v.y, xr[f][2] = v.z, xr[f][3] = v.w;
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 k0 = *reinterpret_cast<const float4*>(kt + (k + kk) * kld);
+      const float4 k1 = *reinterpret_cast<const float4*>(kt + (k + kk) * kld + 4);
+      const float kv[EX_OUT] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
+#pragma unroll
+      for (int f = 0; f < EX_FIB; ++f)
+#pragma unroll
+        for (int j = 0; j < EX_OUT; ++j) acc[f][j] = __fmaf_rn(kv[j], xr[f][kk], acc[f][j]);
+    }
+  }
+  for (; k < n; ++k) {
+    const float4 k0 = *reinterpret_cast<const float4*>(kt + k * kld);
+    const float4 k1 = *reinterpret_cast<const float4*>(kt + k * kld + 4);
+    const float kv[EX_OUT] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
+#pragma unroll
+    for (int f = 0; f < EX_FIB; ++f) {
+      const float xv = x[f * fs + k];
+#pragma unroll
+      for (int j = 0; j < EX_OUT; ++j) acc[f][j] = __fmaf_rn(kv[j], xv, acc[f][j]);
+    }
+  }
+}
+
+__device__ __forceinline__ void zero(float (&acc)[EX_FIB][EX_OUT]) {
+#pragma unroll
+  for (int f = 0; f < EX_FIB; ++f)
+#pragma unroll
+    for (int j = 0; j < EX_OUT; ++j) acc[f][j] = 0.f;
+}
+
+// nv (<= 4) consecutive floats v0..v3 at p: one 16-byte store where it can.
+__device__ __forceinline__ void store_run(float* p, float v0, float v1, float v2, float v3, int nv) {
+  if (nv == 4 && reinterpret_cast<uintptr_t>(p) % 16 == 0) {
+    *reinterpret_cast<float4*>(p) = make_float4(v0, v1, v2, v3);
+  } else {
+    p[0] = v0;
+    if (nv > 1) p[1] = v1;
+    if (nv > 2) p[2] = v2;
+    if (nv > 3) p[3] = v3;
+  }
+}
+
+// The slot in T of a tile's unit u, units enumerated (row of pre, i_0[, i_1])
+// over the input extents, slots over the in-place extents E.
+__device__ __forceinline__ int unit_slot(const ExactArgs& a, int u) {
+  if (a.same_units) return u;
+  if (a.g == 2) {
+    const int r = u / a.n[0];
+    return r * a.E0 + (u - r * a.n[0]);
+  }
+  const int q = u / a.n[1], i1 = u - q * a.n[1];
+  const int r = q / a.n[0], i0 = q - r * a.n[0];
+  return (r * a.E0 + i0) * a.E1 + i1;
+}
+
+// Contract the innermost axis of the landed units [u0, u0 + nu) of tile
+// (p0, q0): into their slots of T, or (g == 1) straight to `out`.
+__device__ __forceinline__ void exact_first(const ExactArgs& a, const float* st, float* T, const float* smem,
+                                            float* out, int u0, int nu, int64_t p0, int64_t q0, int pv) {
+  const int t = a.g - 1, lgS = a.lgS[t], S = 1 << lgS, no = a.o[t];
+  const float* kt = smem + a.koff[t];
+  float acc[EX_FIB][EX_OUT];
+  if (a.rows) {
+    // A lane sums four rows, NG apart, so the rows a quarter-warp reads at
+    // once are neighbours (ls is an odd number of float4s: distinct banks).
+    const int NG = (a.cu + 3) / 4;
+    for (int it = threadIdx.x; it < (NG << lgS); it += EX_THREADS) {
+      const int gi = it >> lgS, s = it & (S - 1);
+      zero(acc);
+      chains_rows(acc, st + gi * a.ls, NG * a.ls, kt + EX_OUT * s, a.kld[t], a.nlast);
+#pragma unroll
+      for (int f = 0; f < EX_FIB; ++f) {
+        const int uc = gi + f * NG;
+        if (uc >= nu) continue;
+        float* dst;
+        int nvalid;  // floats of the lane's slice that land (T's slot is rounded up to 4)
+        if (a.g == 1) {
+          dst = out + (p0 + u0 + uc) * no + EX_OUT * s;
+          nvalid = no - EX_OUT * s;
+        } else {
+          dst = T + unit_slot(a, u0 + uc) * a.inner + EX_OUT * s;
+          nvalid = a.inner - EX_OUT * s;
+        }
+        if (nvalid <= 0) continue;
+        store_run(dst, acc[f][0], acc[f][1], acc[f][2], acc[f][3], nvalid < 4 ? nvalid : 4);
+        if (nvalid > 4) store_run(dst + 4, acc[f][4], acc[f][5], acc[f][6], acc[f][7], nvalid < 8 ? nvalid - 4 : 4);
+      }
+    }
+    return;
+  }
+  const int W = a.ls >> 2;  // four-column groups of a landed row
+  for (int it = threadIdx.x; it < ((a.cu * W) << lgS); it += EX_THREADS) {
+    const int grp = it >> lgS, s = it & (S - 1);
+    const int uc = grp / W, cg = grp - uc * W;
+    if (uc >= nu || 4 * cg >= pv) continue;
+    zero(acc);
+    chains_cols(acc, st + uc * a.rpu * a.ls + 4 * cg, a.ls, kt + EX_OUT * s, a.kld[t], a.nlast);
+    if (a.g == 1) {
+      float* dst = out + (p0 + u0 + uc) * no * a.post + q0 + 4 * cg;
+      const int nv = pv - 4 * cg < 4 ? pv - 4 * cg : 4;
+#pragma unroll
+      for (int j = 0; j < EX_OUT; ++j)
+        if (EX_OUT * s + j < no)
+          store_run(dst + (EX_OUT * s + j) * a.post, acc[0][j], acc[1][j], acc[2][j], acc[3][j], nv);
+    } else if (a.tight) {
+      float* dst = T + unit_slot(a, u0 + uc) * a.inner + 4 * cg;
+      const int nv = pv - 4 * cg < 4 ? pv - 4 * cg : 4;
+#pragma unroll
+      for (int j = 0; j < EX_OUT; ++j)
+        if (EX_OUT * s + j < no)
+#pragma unroll
+          for (int f = 0; f < EX_FIB; ++f)
+            if (f < nv) dst[(EX_OUT * s + j) * a.P + f] = acc[f][j];
+    } else {
+      float* dst = T + unit_slot(a, u0 + uc) * a.inner + 4 * cg;
+#pragma unroll
+      for (int j = 0; j < EX_OUT; ++j)
+        if (EX_OUT * s + j < no)
+          *reinterpret_cast<float4*>(dst + (EX_OUT * s + j) * a.ls) =
+              make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
+    }
+  }
+}
+
+// g == 3: contract axis 1 of T in place.  The S lanes that share a fibre
+// group are one warp's neighbours; they have all read it (__syncwarp)
+// before any of them writes it.
+__device__ __forceinline__ void exact_middle(const ExactArgs& a, float* T, const float* smem, int rv) {
+  const int lgS = a.lgS[1], S = 1 << lgS, C = a.inner, W = C >> 2;
+  const float* kt = smem + a.koff[1];
+  const int items = (rv * a.E0 * W) << lgS, lane = threadIdx.x % 32;
+  float acc[EX_FIB][EX_OUT];
+  for (int it0 = threadIdx.x - lane; it0 < items; it0 += EX_THREADS) {  // warp-uniform trips
+    const int it = it0 + lane;
+    const int grp = it >> lgS, s = it & (S - 1);
+    const int row = grp / W, cg = grp - row * W;  // row = (r, i_0)
+    const bool on = it < items && row % a.E0 < a.n[0];
+    float* x = T + row * a.E1 * C + 4 * cg;
+    zero(acc);
+    if (on) chains_cols(acc, x, C, kt + EX_OUT * s, a.kld[1], a.n[1]);
+    __syncwarp();
+    if (on) {
+#pragma unroll
+      for (int j = 0; j < EX_OUT; ++j)
+        if (EX_OUT * s + j < a.o[1])
+          *reinterpret_cast<float4*>(x + (EX_OUT * s + j) * C) = make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
+    }
+  }
+}
+
+// Where T's element c of a slot row of axis 0 goes in `out`, relative to
+// out[p0 + r, o_0 = 0]; -1 for T's padding (tight layout).
+__device__ __forceinline__ int64_t tight_offset(const ExactArgs& a, int c, int64_t q0, int pv) {
+  const int olast = a.o[a.g - 1];
+  int i1 = 0, rest = c;
+  if (a.g == 3) {
+    i1 = c / a.inner;
+    rest = c - i1 * a.inner;
+    if (i1 >= a.o[1]) return -1;
+  }
+  const int j = rest / a.P, col = rest - j * a.P;
+  if (j >= olast || col >= pv) return -1;
+  return static_cast<int64_t>(i1 * olast + j) * a.post + q0 + col;
+}
+
+// g >= 2: contract axis 0 of T into out[p0 + r, o_0, (o_1,) o_2 or columns].
+__device__ __forceinline__ void exact_last(const ExactArgs& a, const float* T, const float* smem, float* out,
+                                           int64_t p0, int64_t q0, int pv, int rv) {
+  const int lgS = a.lgS[0], S = 1 << lgS, C = a.tstride0, W = C >> 2;
+  const int olast = a.o[a.g - 1], nrest = (a.g == 3 ? a.o[1] : 1) * olast;
+  const float* kt = smem + a.koff[0];
+  float acc[EX_FIB][EX_OUT];
+  for (int it = threadIdx.x; it < ((rv * W) << lgS); it += EX_THREADS) {
+    const int grp = it >> lgS, s = it & (S - 1);
+    const int r = grp / W, c = 4 * (grp - r * W);
+    if (a.tight) {  // four fibres, each its own place in `out`
+      int64_t off[EX_FIB];
+      bool any = false;
+#pragma unroll
+      for (int f = 0; f < EX_FIB; ++f) {
+        off[f] = tight_offset(a, c + f, q0, pv);
+        any = any || off[f] >= 0;
+      }
+      if (!any) continue;
+      zero(acc);
+      chains_cols(acc, T + r * a.E0 * C + c, C, kt + EX_OUT * s, a.kld[0], a.n[0]);
+      float* base = out + (p0 + r) * a.o[0] * nrest * a.post;
+#pragma unroll
+      for (int jo = 0; jo < EX_OUT; ++jo)
+        if (EX_OUT * s + jo < a.o[0])
+#pragma unroll
+          for (int f = 0; f < EX_FIB; ++f)
+            if (off[f] >= 0) base[static_cast<int64_t>(EX_OUT * s + jo) * nrest * a.post + off[f]] = acc[f][jo];
+      continue;
+    }
+    int i1 = 0, rest = c;
+    if (a.g == 3) {
+      i1 = c / a.inner;
+      rest = c - i1 * a.inner;
+      if (i1 >= a.o[1]) continue;
+    }
+    int j = rest, col = 0, nv = olast - rest;
+    if (!a.rows) {
+      j = rest / a.ls;
+      col = rest - j * a.ls;
+      nv = pv - col;
+    }
+    if (nv <= 0) continue;
+    nv = nv < 4 ? nv : 4;
+    zero(acc);
+    chains_cols(acc, T + r * a.E0 * C + c, C, kt + EX_OUT * s, a.kld[0], a.n[0]);
+    float* dst = out + ((p0 + r) * a.o[0] * nrest + i1 * olast + j) * a.post + q0 + col;
+#pragma unroll
+    for (int jo = 0; jo < EX_OUT; ++jo)
+      if (EX_OUT * s + jo < a.o[0])
+        store_run(dst + static_cast<int64_t>(EX_OUT * s + jo) * nrest * a.post, acc[0][jo], acc[1][jo], acc[2][jo],
+                  acc[3][jo], nv);
+  }
+}
+
+__global__ void __launch_bounds__(EX_THREADS, 2)
+kron_exact_tile_kernel(const float* __restrict__ x, float* __restrict__ out, ExactArgs a) {
+  extern __shared__ __align__(16) float esmem[];
+  float* T = esmem + a.t_off;
+  float* ring = esmem + a.ring_off;
+  const int tid = threadIdx.x;
+  const int64_t gs = a.rows ? a.nlast : a.post;  // floats between device-memory rows
+
+  // The chunk sequence: every chunk of every tile of this block, in order;
+  // a chunk is cu units (cu * rpu device-memory rows, consecutive in memory
+  // at stride gs), landed at stride ls.  The copies run up to two chunks
+  // ahead of the sums, across tiles: a stage is refilled as soon as every
+  // thread is past its last read, so the next tile's first two chunks land
+  // while this tile's middle and outer axes are contracted.
+  int64_t ld_tile = blockIdx.x, ld_row0 = 0, ld_q0 = 0;
+  int ld_chunk = 0, ld_stage = 0, ld_pv = 0, ld_units = 0;
+  const int mask = (1 << a.lgp) - 1;
+  auto issue = [&]() {
+    if (ld_tile < a.ntiles) {
+      if (ld_chunk == 0) {
+        const int64_t pt = ld_tile / a.ptiles;
+        ld_q0 = (ld_tile - pt * a.ptiles) * a.P;
+        ld_pv = static_cast<int>(min(static_cast<int64_t>(a.P), a.post - ld_q0));
+        ld_units = static_cast<int>(min(static_cast<int64_t>(a.R), a.pre - pt * a.R)) * a.nurow;
+        ld_row0 = pt * a.R * a.nurow * a.rpu;
+      }
+      const int u0 = ld_chunk * a.cu;
+      const int nu = min(a.cu, ld_units - u0);
+      const int nrow = (nu > 0 ? nu : 0) * a.rpu;
+      const int Lv = a.rows ? a.nlast : ld_pv;
+      float* dst = ring + ld_stage * a.stage;
+      const float* src = x + (ld_row0 + static_cast<int64_t>(u0) * a.rpu) * gs + ld_q0;
+      if (a.copy16) {
+        for (int i = tid; i < (nrow << a.lgp); i += EX_THREADS) {
+          const int r = i >> a.lgp, c = (i & mask) * 4;
+          if (c < Lv) cp_async<16>(dst + r * a.ls + c, src + r * gs + c, 4 * min(4, Lv - c));
+        }
+      } else {
+        for (int i = tid; i < (nrow << a.lgp); i += EX_THREADS) {
+          const int r = i >> a.lgp, c = i & mask;
+          if (c < Lv) cp_async<4>(dst + r * a.ls + c, src + r * gs + c, 4);
+        }
+      }
+      if (++ld_chunk == a.chunks) {
+        ld_chunk = 0;
+        ld_tile += gridDim.x;
+      }
+    }
+    cp_async_commit();
+    ld_stage ^= 1;
+  };
+  issue();
+
+  // The factors, transposed (K^T[k][o], rows padded with zeros to whole
+  // 8-output slices): a lane's eight outputs at one k are two float4s.
+  for (int ax = 0; ax < a.g; ++ax) {
+    const float* K = a.K[ax];
+    float* Kt = esmem + a.koff[ax];
+    const int n = a.n[ax], no = a.o[ax], kld = a.kld[ax];
+    for (int e = tid; e < n * kld; e += EX_THREADS) {
+      const int k = e / kld, oo = e - k * kld;
+      Kt[e] = oo < no ? K[static_cast<int64_t>(oo) * n + k] : 0.f;
+    }
+  }
+
+  int stage = 0, ahead = 1;  // ahead: chunks issued and not yet summed (1 or 2)
+  for (int64_t tile = blockIdx.x; tile < a.ntiles; tile += gridDim.x) {
+    const int64_t pt = tile / a.ptiles, p0 = pt * a.R, q0 = (tile - pt * a.ptiles) * a.P;
+    const int pv = static_cast<int>(min(static_cast<int64_t>(a.P), a.post - q0));
+    const int rv = static_cast<int>(min(static_cast<int64_t>(a.R), a.pre - p0));
+    const int units = rv * a.nurow;
+    for (int c = 0; c < a.chunks; ++c) {
+      if (ahead == 2)
+        cp_async_wait<1>();
+      else
+        cp_async_wait<0>();
+      __syncthreads();  // chunk c has landed; every thread is done with the other stage (and with T)
+      if (ahead == 1) issue();  // into the other stage
+      ahead = 1;
+      const int u0 = c * a.cu;
+      exact_first(a, ring + stage * a.stage, T, esmem, out, u0, min(a.cu, units - u0), p0, q0, pv);
+      stage ^= 1;
+    }
+    if (a.g == 1) continue;
+    __syncthreads();
+    issue();  // into the stage just summed: two chunks in flight under the next contractions
+    ahead = 2;
+    if (a.g == 3) {
+      exact_middle(a, T, esmem, rv);
+      __syncthreads();
+    }
+    exact_last(a, T, esmem, out, p0, q0, pv, rv);
+  }
+  cp_async_wait<0>();
+}
+
+int launch_exact_tile(const void* x, void* out, const ExactArgs& a, int smem, cudaStream_t stream) {
+  static LaunchCache cache;
+  int grid = 0;
+  const cudaError_t err = resident_grid(kron_exact_tile_kernel, cache, EX_THREADS, smem, a.ntiles, grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kron_exact_tile_kernel<<<grid, EX_THREADS, smem, stream>>>(static_cast<const float*>(x), static_cast<float*>(out), a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -1121,6 +1532,67 @@ int log2_pad16(int v) {  // log2 of max(16, the next power of two >= v)
 
 constexpr int ERR_SHAPE = -1;  // arguments the kernels do not take
 
+int log2_ceil(int v) {  // log2 of the next power of two >= v
+  int l = 0;
+  while ((1 << l) < v) ++l;
+  return l;
+}
+
+// The exact member's layout for a tile pass: the shared-memory bytes (the
+// transposed factors, T, two ring stages), or ERR_SHAPE.  ops/cuda/kron.py
+// restates this arithmetic (_exact_tile_layout) to plan P and R.
+int64_t exact_layout(ExactArgs& e, const int* ns, const int* os) {
+  const int g = e.g;
+  int64_t kfl = 0;
+  for (int ax = 0; ax < g; ++ax) {
+    if (ns[ax] < 1 || ns[ax] > 64 || os[ax] < 1 || os[ax] > 8 * 32) return ERR_SHAPE;
+    e.n[ax] = ns[ax], e.o[ax] = os[ax];
+    e.lgS[ax] = log2_ceil((os[ax] + EX_OUT - 1) / EX_OUT);
+    e.kld[ax] = EX_OUT << e.lgS[ax];
+    e.koff[ax] = static_cast<int>(kfl);
+    kfl += static_cast<int64_t>(ns[ax]) * e.kld[ax];
+  }
+  for (int ax = g; ax < 3; ++ax) e.n[ax] = e.o[ax] = 1;
+  e.rows = e.post == 1;
+  e.nlast = ns[g - 1];
+  e.rpu = e.rows ? 1 : e.nlast;
+  // Rows: an odd number of float4s apart, so that the rows a quarter-warp
+  // reads at once fall in distinct banks; columns: P rounded up to 4.
+  e.ls = e.rows ? 4 * (((e.nlast + 3) / 4) | 1) : 4 * ((e.P + 3) / 4);
+  e.nurow = g >= 2 ? ns[0] * (g == 3 ? ns[1] : 1) : 1;
+  e.E0 = ns[0] > os[0] ? ns[0] : os[0];
+  e.E1 = g == 3 ? (ns[1] > os[1] ? ns[1] : os[1]) : 1;
+  const int olast = os[g - 1];
+  e.tight = !e.rows && e.P % 4 != 0;
+  e.inner = e.rows ? (olast + 3) / 4 * 4 : e.tight ? (olast * e.P + 3) / 4 * 4 : olast * e.ls;
+  e.tstride0 = (g == 3 ? e.E1 : 1) * e.inner;
+  e.same_units = (g < 2 || e.E0 == ns[0]) && (g < 3 || e.E1 == ns[1]);
+  const int64_t tfl = g == 1 ? 0 : static_cast<int64_t>(e.R) * e.E0 * e.tstride0;
+  // Units a chunk: enough first-axis tasks for every thread (a task: four
+  // fibres x one 8-output slice), at most the tile's units; halved until
+  // two stages fit beside the factors and T.  One tile is one chunk at g = 1.
+  const int64_t units = static_cast<int64_t>(e.R) * e.nurow;
+  const int lgS = e.lgS[g - 1];
+  auto tasks = [&](int64_t cu) { return (e.rows ? (cu + 3) / 4 : cu * (e.ls / 4)) << lgS; };
+  auto stage = [&](int64_t cu) { return (e.rows ? (cu + 3) / 4 * 4 : cu) * e.rpu * e.ls; };
+  int64_t cu = 1;
+  if (g == 1) {
+    cu = e.R;
+  } else {
+    while (cu < units && tasks(cu) < EX_THREADS) cu *= 2;
+    cu = cu < units ? cu : units;
+    while (cu > 1 && 4 * (kfl + tfl + 2 * stage(cu)) > SMEM_LIMIT) cu /= 2;
+  }
+  const int64_t smem = 4 * (kfl + tfl + 2 * stage(cu));
+  if (smem > SMEM_LIMIT) return ERR_SHAPE;
+  e.cu = static_cast<int>(cu);
+  e.chunks = static_cast<int>((units + cu - 1) / cu);
+  e.stage = static_cast<int>(stage(cu));
+  e.t_off = static_cast<int>(kfl);
+  e.ring_off = static_cast<int>(kfl + tfl);
+  return smem;
+}
+
 }  // namespace
 
 // Plain C entry points, loaded with ctypes.  Pointers and the stream are
@@ -1129,10 +1601,12 @@ constexpr int ERR_SHAPE = -1;  // arguments the kernels do not take
 //
 // Tile pass: contract g (1-3) adjacent axes of x (pre, n_0..n_{g-1}, post)
 // with factors K_a (o_a, n_a), f32, row-major; every n_a <= 64.  P columns
-// of post and R rows of pre per block (R > 1 only when P == post).  mma
-// selects the tensor-core member (fast grade only; its shared memory is
-// 2 * (R * prod E * Pp + sum E^2) bytes, E and Pp padded to powers of two
-// of at least 16, as ops/cuda/kron.py plans it).
+// of post and R rows of pre per block (R > 1 only when P == post).  The
+// exact grade (fast = 0) runs the exact member (o_a <= 256; its shared
+// memory is exact_layout's).  mma selects the tensor-core member (fast grade
+// only; its shared memory is 2 * (R * prod E * Pp + sum E^2) bytes, E and Pp
+// padded to powers of two of at least 16); otherwise the fast grade runs the
+// FP32 member.  ops/cuda/kron.py plans all three with the same arithmetic.
 extern "C" int gp_grief_kron_tile_pass(const void* x, void* out, const void* K0, const void* K1,
                                        const void* K2, int g, int n0, int n1, int n2, int o0, int o1,
                                        int o2, long long pre, long long post, int P, int R, int mma,
@@ -1174,6 +1648,20 @@ extern "C" int gp_grief_kron_tile_pass(const void* x, void* out, const void* K0,
     }
     return out_bf16 ? launch_mma_tile<float, __nv_bfloat16>(x, out, m, smem, st)
                     : launch_mma_tile<float, float>(x, out, m, smem, st);
+  }
+  if (!fast) {  // the exact member
+    if (x_bf16 || out_bf16) return ERR_SHAPE;
+    ExactArgs e{};
+    e.g = g, e.pre = pre, e.post = post, e.P = P, e.R = R;
+    e.ptiles = (post + P - 1) / P;
+    e.ntiles = (pre + R - 1) / R * e.ptiles;
+    for (int ax = 0; ax < g; ++ax) e.K[ax] = static_cast<const float*>(Ks[ax]);
+    const int64_t smem = exact_layout(e, ns, os);
+    if (smem < 0) return ERR_SHAPE;
+    const int L = e.rows ? e.nlast : P;
+    e.copy16 = reinterpret_cast<uintptr_t>(x) % 16 == 0 && L % 4 == 0 && (e.rows || post % 4 == 0);
+    e.lgp = log2_ceil(e.copy16 ? (L + 3) / 4 : L);
+    return launch_exact_tile(x, out, e, static_cast<int>(smem), st);
   }
   TileArgs a{};
   a.g = g;
@@ -1223,16 +1711,12 @@ extern "C" int gp_grief_kron_tile_pass(const void* x, void* out, const void* K0,
   const int64_t smem = floats * 4;
   if (smem > SMEM_LIMIT) return ERR_SHAPE;
   const int sm = static_cast<int>(smem);
-  if (!fast) {
-    if (x_bf16 || out_bf16) return ERR_SHAPE;
-    return tile_by_width<false, float, float>(x, out, a, sm, maxn, st);
-  }
   if (x_bf16) {
-    return out_bf16 ? tile_by_width<true, __nv_bfloat16, __nv_bfloat16>(x, out, a, sm, maxn, st)
-                    : tile_by_width<true, __nv_bfloat16, float>(x, out, a, sm, maxn, st);
+    return out_bf16 ? tile_by_width<__nv_bfloat16, __nv_bfloat16>(x, out, a, sm, maxn, st)
+                    : tile_by_width<__nv_bfloat16, float>(x, out, a, sm, maxn, st);
   }
-  return out_bf16 ? tile_by_width<true, float, __nv_bfloat16>(x, out, a, sm, maxn, st)
-                  : tile_by_width<true, float, float>(x, out, a, sm, maxn, st);
+  return out_bf16 ? tile_by_width<float, __nv_bfloat16>(x, out, a, sm, maxn, st)
+                  : tile_by_width<float, float>(x, out, a, sm, maxn, st);
 }
 
 // Wide pass: contract one axis of x (pre, n, post) with K (o, n), f32, in

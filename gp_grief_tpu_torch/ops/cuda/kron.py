@@ -17,17 +17,27 @@ Each wrapper checks its operands and then
   never falls back to the plain version on the card.
 
 ``kron_matvec_slab.launches`` / ``kron_matvec_fused.launches`` count kernel
-launches (one per pass) and nothing else.  The backward pass is the vector-
-Jacobian product of the exact plain chain, as in the JAX package's custom
-VJPs: the TPU kernels had no backward kernel either.
+launches (one per pass) and nothing else; ``exact_tile_launches`` counts
+those of them that ran on the exact grade's tile member.  The backward pass
+is the vector-Jacobian product of the exact plain chain, as in the JAX
+package's custom VJPs: the TPU kernels had no backward kernel either.
 
-Grades (``precision``): ``"highest"`` is float32-accurate (FP32 FMA in
-the tile member, 3xTF32 tensor-core products in the wide member, whose
-products round differently from the plain chain's); ``"default"`` rounds
-every operand of every contraction to bf16 and accumulates in f32, its tile
-passes on the tensor-core tile member (bf16 ``mma.sync``) wherever that
-member takes the group (:func:`_mma_tile_ok`).  A bf16
-input vector forces ``"default"`` and gives a bf16 result.
+Grades (``precision``): ``"highest"`` is float32-accurate: its tile passes
+run the exact member, its wide passes 3xTF32 tensor-core products (which
+round differently from the plain chain's).  The exact member lands the
+tile's rows through a two-stage ``cp.async`` ring, contracts the innermost
+axis as the rows leave the ring, a middle axis in place and the outermost on
+its way to device memory, each output one FMA chain over k in order, four
+fibres by eight outputs a thread; :func:`_exact_tile_plan` picks its columns
+and rows of ``pre`` and :func:`_exact_tile_layout` restates its shared
+memory.  Its floors at 32 points: 96 FMAs an element for a 3-axis pass
+(0.10 ms of FP32 at 32⁵ beside 0.08 ms of bytes), 64 for a 2-axis one; on
+an H100 it runs at 2-3.4× the byte bound, its FMA loop issuing on about
+half the cycles (PERF.md §6).  ``"default"``
+rounds every operand of every contraction to bf16 and accumulates in f32,
+its tile passes on the tensor-core tile member (bf16 ``mma.sync``) wherever
+that member takes the group (:func:`_mma_tile_ok`), else on the FP32 tile
+member.  A bf16 input vector forces ``"default"`` and gives a bf16 result.
 
 The routing gates :func:`slab_schedule_applicable`,
 :func:`fused_schedule_applicable` and :func:`_fused_schedule` are copied from
@@ -318,6 +328,7 @@ _TILE_MAX_AXIS = 64  # fibre registers a thread holds (csrc: MAXN <= 64)
 _TILE_MAX_GROUP = 3
 _SMEM_LIMIT = 232448  # bytes of shared memory a block can use on sm_90
 _TILE_MAX_P = 128
+_TILE_MAX_OUT = 8 * 32  # csrc EX_OUT x 32: an exact-member task holds 8 of a factor's rows, 32 tasks a warp
 _COALESCED_P = 32  # 128-byte rows of f32: the least run worth a global load
 # csrc TWO_BLOCK_SMEM: a tile block of at most this many bytes leaves room
 # for a second resident block on an SM (228 KB shared by the blocks, 1 KB
@@ -427,6 +438,108 @@ def _mma_tile_rows(ns, outs, P: int, post: int, pre: int) -> int:
     return R
 
 
+# The exact grade's tile member (csrc kron_exact_tile_kernel): 256 threads,
+# each task four fibres x an 8-output slice of a factor.
+_EXACT_THREADS = 256
+_EXACT_OUT = 8
+_EXACT_MIN_TILES = 2 * 132  # at least two tiles for each of an H100's SMs, where pre allows
+_EXACT_COLUMNS = 32  # 128-byte runs of f32
+
+
+def _slices(o: int) -> int:
+    """8-output slices of a factor with ``o`` rows, a power of two (the
+    lanes that share a fibre group are neighbours in one warp)."""
+    return 1 << max(0, (-(-o // _EXACT_OUT) - 1).bit_length())
+
+
+def _exact_rows(nlast: int, olast: int, P: int, post: int) -> tuple[int, int]:
+    """``(ls, inner)`` of the exact member: the floats between landed rows
+    (``P`` rounded up to 4 with columns; ``n_last`` rounded up to an odd
+    number of float4s without, so that four-row reads fall in distinct
+    banks), and T's floats a unit (``o_last`` rounded up to 4 without
+    columns; ``o_last × ls`` with them, or, where ``P`` is not a multiple of
+    4, the ``o_last × P`` outputs packed and rounded up to 4)."""
+    if post == 1:
+        return 4 * ((-(-nlast // 4)) | 1), -(-olast // 4) * 4
+    ls = 4 * -(-P // 4)
+    return ls, olast * ls if P % 4 == 0 else -(-(olast * P) // 4) * 4
+
+
+def _exact_tile_layout(ns, outs, P: int, R: int, post: int) -> tuple[int, int]:
+    """``(shared-memory bytes, units a chunk)`` of the exact member's block
+    for a tile pass: the transposed factors (``n × 8·slices``), T (the tile
+    after its innermost contraction, ``R × E_0 [× E_1] × inner``, ``E =
+    max(n, o)``) and two ring stages of landed rows (:func:`_exact_rows`).
+    A unit is one device-memory row of the innermost axis (``post == 1``) or
+    its ``n_last × P`` block; a chunk takes enough units for a task per
+    thread, at most a tile's, halved until the block fits.  The same
+    arithmetic as ``exact_layout`` in csrc/kron_pass.cu; bytes past
+    ``_SMEM_LIMIT`` mean the member does not take the pass."""
+    g = len(ns)
+    rows = post == 1
+    kfl = sum(n * _EXACT_OUT * _slices(o) for n, o in zip(ns, outs))
+    rpu = 1 if rows else ns[-1]
+    ls, inner = _exact_rows(ns[-1], outs[-1], P, post)
+    E = [max(n, o) for n, o in zip(ns, outs)]
+    tfl = 0 if g == 1 else R * math.prod(E[:-1]) * inner
+    units = R * math.prod(ns[:-1])
+    S = _slices(outs[-1])
+
+    def tasks(cu):
+        return (-(-cu // 4) if rows else cu * (ls // 4)) * S
+
+    def stage(cu):
+        return (-(-cu // 4) * 4 if rows else cu) * rpu * ls
+
+    if g == 1:
+        cu = R
+    else:
+        cu = 1
+        while cu < units and tasks(cu) < _EXACT_THREADS:
+            cu *= 2
+        cu = min(cu, units)
+        while cu > 1 and 4 * (kfl + tfl + 2 * stage(cu)) > _SMEM_LIMIT:
+            cu //= 2
+    return 4 * (kfl + tfl + 2 * stage(cu)), cu
+
+
+def _exact_tile_plan(ns, outs, post: int, pre: int) -> tuple[int, int] | None:
+    """``(P, R)`` of an exact-grade tile pass, or None where the member does
+    not take it.  Columns: ``_EXACT_COLUMNS`` (g ≥ 2: T holds the whole
+    group's extent times P), or at g = 1 enough for a task per thread in one
+    unit; halved until the block fits.  Rows of ``pre`` (only where P covers
+    ``post``) double while the outer contraction (g ≥ 2), or the one (g = 1),
+    has fewer tasks than threads, the block fits, and ``pre`` keeps
+    ``_EXACT_MIN_TILES`` tiles."""
+    g = len(ns)
+    if max(ns) > _TILE_MAX_AXIS or max(outs) > _TILE_MAX_OUT:
+        return None
+    if post == 1:
+        P = 1
+    elif g == 1:
+        P = min(post, max(_EXACT_COLUMNS, 4 * _EXACT_THREADS // _slices(outs[0])))
+    else:
+        P = min(post, _EXACT_COLUMNS)
+    while P > 1 and _exact_tile_layout(ns, outs, P, 1, post)[0] > _SMEM_LIMIT:
+        P //= 2
+    if _exact_tile_layout(ns, outs, P, 1, post)[0] > _SMEM_LIMIT:
+        return None
+    ls, inner = _exact_rows(ns[-1], outs[-1], P, post)
+    outer = 1 if g == 1 else (max(ns[1], outs[1]) if g == 3 else 1) * inner // 4
+
+    def tasks(R):  # the outer contraction's (g >= 2), or the only one's (g == 1)
+        if g == 1:
+            return (-(-R // 4) if post == 1 else R * (ls // 4)) * _slices(outs[0])
+        return R * outer * _slices(outs[0])
+
+    R = 1
+    if P == post:
+        while (tasks(R) < _EXACT_THREADS and pre >= 2 * R * _EXACT_MIN_TILES
+               and _exact_tile_layout(ns, outs, P, 2 * R, post)[0] <= _SMEM_LIMIT):
+            R *= 2
+    return P, R
+
+
 def _tile_columns(ns, outs, post: int) -> int:
     """Trailing columns per block for a tile pass: ``min(post, 128)``, halved
     until the tile fits shared memory but not below ``min(post, 32)`` (rows
@@ -441,10 +554,12 @@ def _tile_columns(ns, outs, post: int) -> int:
 def _hopper_plan(ms: Sequence[int], outs: Sequence[int], B: int):
     """Passes for ``(⊗ K_d) · V`` on Hopper, contracting from the last axis
     to the first: a list of ``(i, j, P)``, each one launch over factors
-    ``i..j``.  ``P = 0`` marks a wide pass (one axis of more than 64 points,
-    a GEMM); otherwise a tile pass of up to three axes with ``P`` trailing
-    columns per block.  A group grows leftwards while its tile still fits
-    shared memory with coalesced loads."""
+    ``i..j``.  ``P = 0`` marks a wide pass (one axis of more than 64 points
+    or more than 256 outputs, a GEMM); otherwise a tile pass of up to three
+    axes with ``P`` trailing columns per block (the fast grade's FP32
+    member's; the exact member plans its own).  A group grows leftwards
+    while the FP32 member's tile fits shared memory with coalesced loads and
+    the exact member has a plan for it."""
     d = len(ms)
     passes = []
     j = d - 1
@@ -454,7 +569,7 @@ def _hopper_plan(ms: Sequence[int], outs: Sequence[int], B: int):
         i = j
         while i >= 0 and j - i < _TILE_MAX_GROUP and ms[i] <= _TILE_MAX_AXIS:
             P = _tile_columns(ms[i : j + 1], outs[i : j + 1], post)
-            if P == 0:
+            if P == 0 or _exact_tile_plan(ms[i : j + 1], outs[i : j + 1], post, 1) is None:
                 break
             best = (i, P)
             i -= 1
@@ -501,8 +616,10 @@ def _passes(ms: tuple, outs: tuple, B: int, lead: int, plan: tuple | None, fast:
     o, pre, post, tile width``) or ``gp_grief_kron_tile_pass`` (``g,
     n0..n2, o0..o2, pre, post, P, R, mma``).  At the fast grade a tile pass
     the tensor-core member takes (:func:`_mma_tile_ok`) runs there with its
-    own rows (``mma = 1``); every other tile pass runs the FP32 member.
-    Cached: the wrappers run in solver loops."""
+    own rows (``mma = 1``); every other fast-grade tile pass runs the FP32
+    member.  An exact-grade tile pass runs the exact member, its ``P`` and
+    ``R`` from :func:`_exact_tile_plan`.  Cached: the wrappers run in solver
+    loops."""
     plan = plan or _hopper_plan(ms, outs, B)
     cur = list(ms)
     out = []
@@ -514,7 +631,10 @@ def _passes(ms: tuple, outs: tuple, B: int, lead: int, plan: tuple | None, fast:
             pad = (1,) * (3 - (j - i + 1))
             ns, os_ = ms[i : j + 1], outs[i : j + 1]
             mma = fast and _mma_tile_ok(ns, os_, P)
-            R = (_mma_tile_rows if mma else _tile_rows)(ns, os_, P, post, pre)
+            if not fast:
+                P, R = _exact_tile_plan(ns, os_, post, pre)
+            else:
+                R = (_mma_tile_rows if mma else _tile_rows)(ns, os_, P, post, pre)
             args = (j - i + 1, *ns, *pad, *os_, *pad, pre, post, P, R, int(mma))
         out.append((i, j, (pre, *outs[i : j + 1], post), P == 0, args))
         cur[i : j + 1] = outs[i : j + 1]
@@ -564,6 +684,8 @@ def _launch(which, factors, v: torch.Tensor, fast: bool, mid_dtype, B: int, *, l
                 f"{out_shape}) failed: {what} {err}"
             )
         which.launches += 1
+        if not (wide or fast):
+            which.exact_tile_launches += 1
         x = out
     return x
 
@@ -662,5 +784,5 @@ def kron_matvec_fused(
     return out[:, 0] if squeeze else out
 
 
-kron_matvec_slab.launches = 0
-kron_matvec_fused.launches = 0
+kron_matvec_slab.launches = kron_matvec_slab.exact_tile_launches = 0
+kron_matvec_fused.launches = kron_matvec_fused.exact_tile_launches = 0

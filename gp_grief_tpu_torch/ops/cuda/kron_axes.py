@@ -163,7 +163,7 @@ def tail2_pass_ref(x3, K4, K5, *, precision: str = "highest") -> torch.Tensor:
     return _tail_ref(x3, (K4, K5), _grade(precision, x3))
 
 
-kron_matmat_cuda.launches = 0
+kron_matmat_cuda.launches = kron_matmat_cuda.exact_tile_launches = 0
 last_slab_pass.launches = 0
-tail3_pass.launches = 0
-tail2_pass.launches = 0
+tail3_pass.launches = tail3_pass.exact_tile_launches = 0
+tail2_pass.launches = tail2_pass.exact_tile_launches = 0

@@ -172,6 +172,55 @@ def test_slab_exact_grade_keeps_its_bits(cuda):
     assert hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest() == X3_DIGEST
 
 
+# The exact grade's tile member (csrc kron_exact_tile_kernel), one pass at a
+# time through the plan argument of the wrappers' launcher: (case, factor
+# shapes (o, n), lead rows of pre, B columns of post).  At post = 1 the
+# innermost axis is contracted as its rows land (a lone innermost axis writes
+# its rows straight out); with columns, n x P blocks land.  The plan picks P
+# and R (_exact_tile_plan).
+EXACT_TILE_CASES = [
+    ("g1_rows_ragged_tile", [(24, 20)], 4099, 1),  # 3 of 4 output slices; R = 8, the last tile 3 rows
+    ("g1_rows_4byte_copies", [(7, 5)], 1000, 1),  # rows of 5 floats: 4-byte copies
+    ("g1_cols_R_batches", [(8, 8)], 600, 24),  # P = post = 24, R = 2
+    ("g1_cols_column_tiles", [(40, 32)], 2, 3000),  # P = 128: 24 column tiles, the last 56 wide
+    ("g1_many_outputs", [(100, 20)], 5, 1),  # 16 slices of 8 outputs
+    ("g2_rows_rectangular", [(17, 24), (30, 20)], 300, 1),
+    ("g2_rows_R_batches", [(8, 8), (8, 8)], 600, 1),  # R = 2
+    ("g2_cols_ragged_tile", [(17, 20), (24, 24)], 3, 40),  # P = 32: the second tile 8 wide
+    ("g2_cols_R_batches", [(8, 8), (8, 8)], 2000, 4),  # P = post = 4, R = 4
+    ("g2_cols_post_8", [(32, 32), (32, 32)], 500, 8),  # X3's first pass at B = 8
+    ("g3_rows_multi_chunk", [(13, 12), (33, 40), (24, 20)], 3, 1),  # 480 rows a tile in chunks of 256
+    ("g3_rows_32cubed", [(32, 32)] * 3, 300, 1),  # tail3_pass / K2's first pass at 32^5
+    ("g3_cols_4byte_copies", [(2, 3), (6, 4), (3, 5)], 2, 7),  # P = 7: 4-byte copies
+    ("g3_cols_E_over_n", [(12, 9), (3, 4), (4, 8)], 2, 13),  # o > n on axis 0: T's slots skip
+]
+
+
+@pytest.mark.parametrize("case,shapes,lead,B", EXACT_TILE_CASES, ids=[c[0] for c in EXACT_TILE_CASES])
+def test_exact_tile_member(cuda, case, shapes, lead, B):
+    """Each case twice bit for bit, within 1e-5 of the plain float32 chain
+    and of float64."""
+    g = torch.Generator().manual_seed(len(case))
+    fs = [(torch.randn(s, generator=g, dtype=torch.float64) / s[1] ** 0.5).to(cuda, torch.float32) for s in shapes]
+    ns, outs = [s[1] for s in shapes], [s[0] for s in shapes]
+    v = torch.randn((lead * math.prod(ns), B), generator=g, dtype=torch.float64).to(cuda, torch.float32)
+    plan = ((0, len(shapes) - 1, 1),)
+    (_, _, _, wide, args), = tk._passes(tuple(ns), tuple(outs), B, lead, plan, False)
+    assert not wide and args[-1] == 0
+    before = tk.kron_matvec_fused.launches
+    got = tk._launch(tk.kron_matvec_fused, fs, v, False, None, B, lead=lead, plan=plan).reshape(-1, B)
+    again = tk._launch(tk.kron_matvec_fused, fs, v, False, None, B, lead=lead, plan=plan).reshape(-1, B)
+    torch.cuda.synchronize()
+    assert tk.kron_matvec_fused.launches - before == 2
+    assert torch.equal(got, again)
+    eye = torch.eye(lead, device=cuda)
+    plain = tk.kron_chain_ref([eye, *fs], v)
+    exact = tk.kron_chain_ref([eye.double(), *[f.double() for f in fs]], v.double())
+    assert got.shape == plain.shape
+    assert _rel(got, plain) < TOL["highest"]
+    assert _rel(got, exact) < 1e-5
+
+
 def test_wide_member_exact_grade_at_depth_1024(cuda):
     """3xTF32's error grows with the contraction depth: K3 at (8, 1024, 1024)
     "highest" runs two 1024-deep wide passes, held to the same 1e-5 limits
