@@ -128,14 +128,22 @@ non-zero without printing the final line:
              per case: each rank's wall, device time of one profiled NLML,
              peak memory, collectives (calls, bytes, host seconds) and
              launches, and each gap beside its limit (PARALLEL_RTOL).
+16. bench  — ``python -m gp_grief_tpu_torch bench`` on the card (a
+             subprocess): the Kronecker matvec's effective GB/s at 5 × 32
+             on K2 at "default" (its mma tile member) and "highest" (its
+             exact tile member) against a stream measured in the same run;
+             exit 0, finite positive rates, both grades within the bench's
+             limits of float64 (REL_ERR_MAX), route "slab", K2's launches
+             and exact-tile launches grown; its JSON line printed with the
+             card.
 
 Then the ``nvidia-smi`` name/power-limit line, one ``{"kernels": [...]}``
 line (K1 launches from phases 4-5 (14a among them) and configs,
 K2/K3 from phase 7 (14b among them), K4/K5 from
 phase 9's float32 runs, K6-K8 from phase 10; ``training_launches`` from
 phases 11-12; phase 13 launches none; ``parallel_launches``, the ranks' sum
-over phase 15) and, last, ``{"ok": true, "device": {...}}``.  This script
-imports no JAX.
+over phase 15; K2's ``bench_launches``, the bench process's over phase 16)
+and, last, ``{"ok": true, "device": {...}}``.  This script imports no JAX.
 """
 
 from __future__ import annotations
@@ -2725,6 +2733,41 @@ def phase_parallel(card: str) -> dict:
     return totals
 
 
+BENCH_TIMEOUT = 300
+
+
+def phase_bench(card: str) -> dict:
+    """Phase 16: ``python -m gp_grief_tpu_torch bench`` on the card (a
+    subprocess, as phase 14c runs ``checkgrad``), its last line parsed and
+    checked.  Returns the bench's record."""
+    from gp_grief_tpu_torch.bench import REL_ERR_MAX
+
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "gp_grief_tpu_torch", "bench"], capture_output=True, text=True,
+                         timeout=BENCH_TIMEOUT, cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = cli.stdout.splitlines()
+    try:
+        rec = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        rec = None
+    emit({"phase": "bench", "returncode": cli.returncode, "s": time.perf_counter() - t0, "bench": rec, "card": card})
+    check(cli.returncode == 0 and isinstance(rec, dict),
+          f"bench on the card: exit {cli.returncode}, {cli.stdout[-2000:]}{cli.stderr[-2000:]}")
+    det = rec["detail"]
+    for key in ("value", "stream_GBs", "x3_grade_GBs"):
+        value = rec[key] if key == "value" else det[key]
+        check(isinstance(value, float) and np.isfinite(value) and value > 0, f"bench: {key} is {value!r}")
+    check(det["matvec_rel_err"] <= REL_ERR_MAX["default"] and det["x3_rel_err"] <= REL_ERR_MAX["highest"],
+          f"bench: errors {det['matvec_rel_err']} / {det['x3_rel_err']} against float64 (limits {REL_ERR_MAX})")
+    check(det["route"] == "slab", f"bench: the matvec took route {det['route']!r}, not K2")
+    check(det["launches"]["matvec"] > 0 and det["launches"]["x3_exact_tile"] > 0,
+          f"bench: K2 launches {det['launches']}")
+    check(set(det["kernels"]["matvec"]) == {"kron_mma_tile_kernel"}
+          and set(det["kernels"]["x3"]) == {"kron_exact_tile_kernel"},
+          f"bench: kernels {det['kernels']}, not K2's mma tile member at 'default' and its exact tile member at x3")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -2869,6 +2912,10 @@ def main() -> int:
         check(par_launches[key] > 0, f"the sharded paths never launched {key}")
     for entry, key in zip(entries, ("K1", "K2", "K3", "K4", "K5", None, None, None, None)):
         entry["parallel_launches"] = par_launches[key] if key else 0
+
+    # Phase 16: the headline benchmark, in a process of its own; its K2
+    # launches are that process's.
+    entries[1]["bench_launches"] = phase_bench(card)["detail"]["launches"]
 
     print(card, flush=True)
     emit({"kernels": entries})

@@ -28,7 +28,8 @@ shard the training rows, ``GPKroneckerRegression(mesh=...)`` the lattice.
 Besides the models: the structured operators and solvers (``ops``),
 checkpoints, metric logs, profiling spans and finiteness guards
 (``gp_grief_tpu_torch.utils``) and a command line,
-``python -m gp_grief_tpu_torch {checkgrad|configs}``.
+``python -m gp_grief_tpu_torch {checkgrad|configs|bench}``, the real-dataset
+loaders of the kin40k / uci2m configurations (``data``).
 
 The kernels are hand-written CUDA for Hopper and run on CUDA tensors.  Models
 run on the card unless built with ``device="cpu"`` (or from CPU tensors).

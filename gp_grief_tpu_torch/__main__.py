@@ -10,7 +10,12 @@ Counterpart of ``python -m gp_grief_tpu``:
   unless ``--device cpu``.
 * ``configs [names...] [--device cpu]`` — run BASELINE configurations
   through ``gp_grief_tpu_torch.run_configs`` (default: sine1d grid3d d100).
-* ``bench`` — the port has no benchmark yet; exits 2.
+* ``bench [--d D] [--m_d M] [--device cpu]`` — the headline benchmark,
+  ``gp_grief_tpu_torch.bench``: the Kronecker matvec's effective GB/s on
+  kernel K2 at both grades (default 5 × 32, M = 2²⁵) against a stream
+  measured in the same run, each grade's error against float64; one JSON
+  line, last (exit 0; non-zero on a failed phase or a grade over its limit;
+  2 on a usage error).  On the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -80,8 +85,9 @@ def main(argv) -> int:
 
         return run_configs.main(rest)
     if cmd == "bench":
-        print("the port has no benchmark yet (ROADMAP.md, Queue 1: a torch headline benchmark)")
-        return 2
+        from gp_grief_tpu_torch import bench
+
+        return bench.main(rest)
     print(f"unknown subcommand {cmd!r}\n{__doc__}")
     return 2
 

@@ -8,18 +8,22 @@ configurations, data, seeds and recipes, and the same keys in each line.
    ``GPRegression`` on grid data).  float64.
 2. ``grid3d`` — a 22³ product grid (n = 10,648): Schur and CG NLML of
    ``GPKroneckerRegression``.  float64.
-3. ``kin40k`` — the kin40k-shaped synthetic set (n = 40k, d = 8): 150 Adam
-   steps on the kernel parameters, 200 reweight steps, test rmse and nll.
-   float32.
-4. ``uci2m`` — the 2M-point synthetic set (d = 10): 150 reweight steps, test
-   rmse, and the NLML at the optimum both in closed form and by CG + SLQ on
-   the full 1.9M-row operator.  float32.
+3. ``kin40k`` — kin40k, or the kin40k-shaped synthetic set (n = 40k,
+   d = 8): 150 Adam steps on the kernel parameters, 200 reweight steps, test
+   rmse and nll.  float32.
+4. ``uci2m`` — a large UCI set, or the 2M-point synthetic set (d = 10): 150
+   reweight steps, test rmse, and the NLML at the optimum both in closed
+   form and by CG + SLQ on the full training operator (1.9M rows on the
+   synthetic set).  float32.
 5. ``d100`` — d = 100 (10¹⁰⁰ virtual grid points): basis, NLML, 50 Adam
    steps, predict.  float64.
 
-Only the synthetic branches of kin40k and uci2m exist here (their real
-files are not in the repository).  Each config function returns every value
-it computed; the line printed holds the reference runner's keys.
+kin40k and uci2m run on the real sets when their files are dropped into
+``benchmarks/data/`` or ``$GP_GRIEF_DATA`` (``gp_grief_tpu_torch.data``;
+:func:`kin40k_split`, :func:`uci2m_split`), tagged ``kin40k_real`` /
+``uci2m_real``, else on the synthetic sets (``kin40k_synth`` /
+``uci2m_synth``).  Each config function returns every value it computed,
+the tag as ``config``; the line printed holds the reference runner's keys.
 
 Run: ``python -m gp_grief_tpu_torch.run_configs [names] [--device cpu]``
 (default: sine1d grid3d d100, on the card).
@@ -35,9 +39,10 @@ import numpy as np
 import torch
 
 import gp_grief_tpu_torch as gpt
+from gp_grief_tpu_torch.data import load_kin40k, load_uci2m, standardize
 
-__all__ = ["ALL", "KEYS", "kin40k_data", "kin40k_model", "uci2m_data", "uci2m_model", "sine1d", "grid3d",
-           "kin40k", "uci2m", "d100"]
+__all__ = ["ALL", "KEYS", "kin40k_data", "kin40k_model", "kin40k_split", "uci2m_data", "uci2m_model",
+           "uci2m_split", "sine1d", "grid3d", "kin40k", "uci2m", "d100"]
 
 # The keys of benchmarks/run_configs.py's line for each configuration.
 KEYS = {
@@ -48,7 +53,6 @@ KEYS = {
               "slq_cg_s"),
     "d100": ("virtual_pts_log10", "ll", "ll_opt", "build_s", "pred_finite"),
 }
-TAGS = {"kin40k": "kin40k_synth", "uci2m": "uci2m_synth"}
 
 # uci2m's iterative NLML, as benchmarks/run_configs.py:234-237 calls it.
 UCI2M_ITERATIVE = dict(num_probes=8, lanczos_iters=48, cg_tol=1e-5, cg_iters=300, precond_rank=300,
@@ -91,6 +95,36 @@ def uci2m_data():
     y = (f + 0.1 * rng.standard_normal(n)).astype(np.float32)
     n_te = min(100_000, max(1, n // 5))
     return x[:-n_te], y[:-n_te], x[-n_te:], f[-n_te:]
+
+
+def kin40k_split():
+    """kin40k's data as ``(tag, xtr, ytr, xte, yte, fte)``: the real set
+    where ``data.load_kin40k`` finds it, standardized with the training
+    split's statistics, float32, the test labels as the targets
+    (``kin40k_real``); else :func:`kin40k_data` (``kin40k_synth``)."""
+    real = load_kin40k(dtype=np.float32)
+    if real is None:
+        return ("kin40k_synth", *kin40k_data())
+    xtr, ytr, xte, yte, _ = standardize(*real)
+    xtr, ytr, xte, yte = (np.asarray(a, dtype=np.float32) for a in (xtr, ytr, xte, yte))
+    return "kin40k_real", xtr, ytr, xte, yte, yte
+
+
+def uci2m_split():
+    """uci2m's data as ``(tag, xtr, ytr, xte, fte)``: the real set where
+    ``data.load_uci2m`` finds it, x and y standardized with the whole set's
+    statistics, float32, the last ``min(100k, n // 5)`` rows for test and
+    their labels as the targets (``uci2m_real``); else :func:`uci2m_data`
+    (``uci2m_synth``)."""
+    real = load_uci2m(dtype=np.float32)
+    if real is None:
+        return ("uci2m_synth", *uci2m_data())
+    x, y = real
+    xm, xs = x.mean(0), x.std(0) + 1e-12
+    ym, ys = y.mean(), y.std() + 1e-12
+    x, y = ((x - xm) / xs).astype(np.float32), ((y - ym) / ys).astype(np.float32)
+    n_te = min(100_000, max(1, x.shape[0] // 5))
+    return "uci2m_real", x[:-n_te], y[:-n_te], x[-n_te:], y[-n_te:]
 
 
 def sine1d(device="cuda") -> dict:
@@ -164,7 +198,7 @@ def kin40k_model(xtr, ytr, dtype, device):
 
 
 def kin40k(device="cuda") -> dict:
-    xtr, ytr, xte, yte, fte = kin40k_data()
+    tag, xtr, ytr, xte, yte, fte = kin40k_split()
 
     def train():
         # Phase 1: the kernel hyperparameters, weights and noise (the basis
@@ -180,8 +214,8 @@ def kin40k(device="cuda") -> dict:
     mean, var = (_np(t) for t in model.predict(xte, include_noise=True))
     rmse = float(np.sqrt(np.mean((mean - fte) ** 2)))
     nll = float(np.mean(0.5 * np.log(2 * np.pi * var) + 0.5 * (yte - mean) ** 2 / var))
-    return dict(n=40000, d=xtr.shape[1], p=model.n_eigs, rmse=rmse, nll=nll, train_s=t_train,
-                virtual_pts_log10=model.grid.log10_num_virtual)
+    return dict(config=tag, n=xtr.shape[0] + xte.shape[0], d=xtr.shape[1], p=model.n_eigs, rmse=rmse, nll=nll,
+                train_s=t_train, virtual_pts_log10=model.grid.log10_num_virtual)
 
 
 def uci2m_model(xtr, ytr, device):
@@ -196,16 +230,17 @@ def uci2m_model(xtr, ytr, device):
 def uci2m(device="cuda") -> dict:
     """Besides the reference's keys: ``cg_iterations`` of the iterative
     NLML."""
-    xtr, ytr, xte, fte = uci2m_data()
+    tag, xtr, ytr, xte, fte = uci2m_split()
     model, t_build = _timed(lambda: uci2m_model(xtr, ytr, device), device)
     _, t_train = _timed(lambda: model.optimize(optimizer="adam", max_iters=150, learning_rate=0.05), device)
     mean = _np(model.predict(xte, compute_var=False))
     rmse = float(np.sqrt(np.mean((mean - fte) ** 2)))
     ll_closed = model.log_likelihood()
     ll_iter, t_iter = _timed(lambda: model.log_likelihood_iterative_segmented(**UCI2M_ITERATIVE), device)
-    return dict(n=2_000_000, d=xtr.shape[1], p=400, rmse=rmse, basis_s=t_build, train_s=t_train,
-                nlml_closed=ll_closed, nlml_slq_cg=ll_iter, slq_cg_nlml_gap=abs(ll_iter - ll_closed) / abs(ll_closed),
-                slq_cg_s=t_iter, cg_iterations=model.cg_iterations)
+    return dict(config=tag, n=xtr.shape[0] + xte.shape[0], d=xtr.shape[1], p=400, rmse=rmse, basis_s=t_build,
+                train_s=t_train, nlml_closed=ll_closed, nlml_slq_cg=ll_iter,
+                slq_cg_nlml_gap=abs(ll_iter - ll_closed) / abs(ll_closed), slq_cg_s=t_iter,
+                cg_iterations=model.cg_iterations)
 
 
 def d100(device="cuda") -> dict:
@@ -231,10 +266,10 @@ ALL = {"sine1d": sine1d, "grid3d": grid3d, "kin40k": kin40k, "uci2m": uci2m, "d1
 
 
 def line(name: str, out: dict) -> str:
-    """The reference runner's JSON line: its keys, floats rounded to 6
-    decimals."""
+    """The reference runner's JSON line: the run's tag (``out["config"]``,
+    else ``name``), its keys, floats rounded to 6 decimals."""
     kv = {k: out[k] for k in KEYS[name]}
-    return json.dumps({"config": TAGS.get(name, name),
+    return json.dumps({"config": out.get("config", name),
                        **{k: (round(v, 6) if isinstance(v, float) else v) for k, v in kv.items()}})
 
 

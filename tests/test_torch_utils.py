@@ -1,7 +1,7 @@
 """The port's utilities and command line on the CPU (tests/test_utils.py:17-100's
 cases): checkpoints that cross between the two packages, resumed training,
 the metric logger, the finiteness guards, profiling spans, and
-``python -m gp_grief_tpu_torch {checkgrad,configs}`` as subprocesses."""
+``python -m gp_grief_tpu_torch {checkgrad,configs,bench}`` as subprocesses."""
 
 import json
 import os
@@ -171,6 +171,7 @@ def test_cli_checkgrad_and_configs():
     assert out.returncode == 0, out.stdout + out.stderr
     line = json.loads(out.stdout.splitlines()[-1])
     assert line["config"] == "sine1d" and np.isfinite(line["rmse"])
-    for args, rc in ((("checkgrad", "--sample", "x", "--device", "cpu"), 2), (("bench",), 2), (("nonsense",), 2),
-                     ((), 0)):
+    # bench with no CUDA device and no --device raises (exit 1); a usage error exits 2.
+    for args, rc in ((("checkgrad", "--sample", "x", "--device", "cpu"), 2), (("bench",), 1),
+                     (("bench", "--d", "x"), 2), (("nonsense",), 2), ((), 0)):
         assert _cli(*args).returncode == rc
