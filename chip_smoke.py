@@ -38,7 +38,14 @@ non-zero without printing the final line:
              the port's cyclic torch.matmul chain, beside the bound, and the
              device time of each kernel member (``members``).  Then SKI's
              lattice Q/Qᵀ (X3, the exact grade at (I_8 ⊗ 32^4)): its output's
-             sha256 against X3_DIGEST, and its times.
+             sha256 against X3_DIGEST, and its times.  Then the route table
+             (ROUTE_TABLE, ``kron_route`` lines): each Kronecker call form of
+             the solvers at the configurations' sizes, the route
+             ``kron_fast.kernel_route`` picks, the kernel against its plain
+             version, and the kernel's and the chain's ms (``bench.py``'s
+             slope method); a form the JAX package runs on a Pallas kernel
+             must route to K2/K3, and any other may take a kernel only where
+             it is faster here.
 7. grid    — the two grid configurations (GRID_CONFIGS) end to end through
              ``GPKroneckerRegression``: float64 schur NLML against a recorded
              float64 JAX run, float32 CG NLML against float32 schur, the
@@ -61,7 +68,9 @@ non-zero without printing the final line:
              full size: the NLML with the same probes, the mean and variance
              at the same points, each held to the card's float64; the NLML
              as a user calls it, profiled (wall, device time, idle share,
-             launches); plan build times; LOVE on ski100k_data.
+             launches, and its batched Kronecker applies: every 1 + 8-row
+             one on K2's planned passes); plan build times; LOVE on
+             ski100k_data.
 
 10. kron_axes — K6-K8 against their plain versions at the 32⁵ shapes (with
              each kernel member's device time), and K7 as the operator of a
@@ -78,7 +87,8 @@ non-zero without printing the final line:
              with float32 and with bf16 step solves, ski100k_data with the data
              solver, K4 as W's adjoint), the runs bit-identical and the NLML
              lower, per step solve and gradient wall, device time, idle share,
-             peak memory, CG iterations and launches; ski1m_lattice's
+             peak memory, CG iterations and launches (ski1m_lattice: every
+             1 + 8-row Q/Qᵀ apply on K2, float32 and bf16); ski1m_lattice's
              ``log_likelihood_segmented`` against ``log_likelihood``.
 13. gp_iter — ``GPRegression``'s iterative path, matrix-free, on
              benchmarks/exp_r15_train500k.py's recipe (GP_ITER): float64 at
@@ -111,7 +121,7 @@ non-zero without printing the final line:
     b. kron_segmented — in phase 7, each grid configuration's
              ``log_likelihood_segmented()`` at full size, twice (bit for
              bit), held to the float64 Schur NLML at GRID_CG_GAP_RTOL (K3 at
-             grid8x512x512_exact; the chain at grid32x5_mixed).
+             grid8x512x512_exact; K2 at grid32x5_mixed).
 15. parallel — the multi-device layer (gp_grief_tpu_torch.parallel) on
              ranks spawned by ``parallel.launch.spawn``: world 2 on gloo with
              both ranks on cuda:0, then world 1 on NCCL (PARALLEL_RUNS).
@@ -139,7 +149,8 @@ non-zero without printing the final line:
 
 Then the ``nvidia-smi`` name/power-limit line, one ``{"kernels": [...]}``
 line (K1 launches from phases 4-5 (14a among them) and configs,
-K2/K3 from phase 7 (14b among them), K4/K5 from
+K2/K3 from phase 7 (14b among them; K2's ``batched_applies`` from phases 9
+and 12, each entry's ``route_table_rows`` from phase 6), K4/K5 from
 phase 9's float32 runs, K6-K8 from phase 10; ``training_launches`` from
 phases 11-12; phase 13 launches none; ``parallel_launches``, the ranks' sum
 over phase 15; K2's ``bench_launches``, the bench process's over phase 16)
@@ -799,8 +810,9 @@ def phase_configs(card: str) -> None:
 GRID_CONFIGS = {
     # d = 5, 32 sorted uniform points on [0, 3] per dimension, y ~ N(0, 1)
     # (the data of benchmarks/exp_r4_mixed16_e2e.py, M = 33,554,432).  The
-    # mixed refinement's inner matvec is kron_matvec_fast(..., "default"),
-    # slab-applicable: K2.  Its exact residual refresh is the matmul chain.
+    # mixed refinement's inner matvec is kron_matvec_fast(..., "default")
+    # and its exact residual refresh kron_matvec_fast(..., "highest"): K2,
+    # on its mma tile member and its exact tile member.
     "grid32x5_mixed": dict(
         sizes=(32,) * 5, lengthscales=(0.05,) * 5, noise_var=10.0,
         model=dict(solver="cg", cg_precision="mixed", precond_rank=0, cg_tol=1e-6, cg_iters=250),
@@ -970,6 +982,9 @@ def phase_kron(card: str) -> dict:
         del fs, vs
         torch.cuda.empty_cache()
     summary["kron_slab"]["x3"] = phase_kron_x3(card)
+    routes = phase_kron_routes(card)
+    for kname, route in (("kron_slab", "slab"), ("kron_fused", "fused")):
+        summary[kname]["routes"] = [r["row"] for r in routes if r["route"] == route]
     return summary
 
 
@@ -1034,6 +1049,133 @@ def phase_kron_x3(card: str) -> dict:
     del fs, v, vs, got, plain, exact
     torch.cuda.empty_cache()
     return out
+
+
+# The Kronecker call forms of the solvers at the smoke configurations' sizes,
+# and where ``kron_fast.kernel_route`` sends each: (row, port site, lead,
+# factor sizes, B, precision, vector dtype, rule).  ``lead`` is the size of
+# the leading ``batch_identity`` (0: none; the call form is the factors
+# alone).  ``rule``: "a" where the JAX package's dispatch sends the product
+# to a Pallas kernel on a TPU (its gates after ``safe_batch_pad`` where its
+# caller wraps the op in ``safe_batch_op``; tests/test_torch_kron_route.py
+# derives each row's rule from the copied gates), so K2/K3 must take it;
+# "b" where it sends it to the chain, so the kernel runs only where it is
+# faster here.  One row is held to "a" although the JAX package runs its
+# chain there (ROUTE_HELD_TO_A).  num_probes = 8 gives the 1 + 8-row solves
+# and 8-row SLQ; 16 the 17- and 16-row ones.
+ROUTE_TABLE = [
+    ("lattice_dual_f32", "models/gp_ski.py:423", 9, (32,) * 4, 1, "BF16_BF16_F32_X3", "float32", "a"),
+    ("lattice_slq_f32", "models/gp_ski.py:423", 8, (32,) * 4, 1, "BF16_BF16_F32_X3", "float32", "a"),
+    ("lattice_dual_bf16", "models/gp_ski.py:423", 9, (32,) * 4, 1, "BF16_BF16_F32_X3", "bfloat16", "a"),
+    ("lattice_dual_p16_f32", "models/gp_ski.py:423", 17, (32,) * 4, 1, "BF16_BF16_F32_X3", "float32", "b"),
+    ("lattice_slq_p16_f32", "models/gp_ski.py:423", 16, (32,) * 4, 1, "BF16_BF16_F32_X3", "float32", "a"),
+    ("lattice_dual_p16_bf16", "models/gp_ski.py:423", 17, (32,) * 4, 1, "BF16_BF16_F32_X3", "bfloat16", "a"),
+    ("lattice_predict_dual", "models/gp_ski.py:423", 32, (32,) * 4, 1, "BF16_BF16_F32_X3", "float32", "a"),
+    ("ski_data_solve", "models/gp_ski.py:314", 9, (32,) * 4, 1, "highest", "float32", "b"),
+    ("ski_data_slq", "models/gp_ski.py:314", 8, (32,) * 4, 1, "highest", "float32", "b"),
+    ("ski_data_solve_p16", "models/gp_ski.py:314", 17, (32,) * 4, 1, "highest", "float32", "b"),
+    ("ski_data_alpha", "models/gp_ski.py:314", 1, (32,) * 4, 1, "highest", "float32", "b"),
+    ("ski_predict_kw_alpha", "models/gp_ski.py:789", 0, (32,) * 4, 1, "highest", "float32", "b"),
+    ("ski_predict_love_r100", "models/gp_ski.py:795", 100, (32,) * 4, 1, "highest", "float32", "b"),
+    ("ski_predict_love_r256", "models/gp_ski.py:795", 256, (32,) * 4, 1, "highest", "float32", "b"),
+    ("ski_predict_exact_data", "models/gp_ski.py:843", 58, (32,) * 4, 1, "highest", "float32", "b"),
+    ("ski_predict_exact_lattice", "models/gp_ski.py:834", 32, (32,) * 4, 1, "highest", "float32", "b"),
+    ("grid_refresh", "models/gp_kron.py:232", 0, (32,) * 5, 1, "highest", "float32", "b"),
+    ("grid_inner", "models/gp_kron.py:232", 0, (32,) * 5, 1, "default", "float32", "a"),
+    ("grid8x512x512", "models/gp_kron.py:232", 0, (8, 512, 512), 1, "highest", "float32", "a"),
+    ("deep_I8_1024", "phase 6", 8, (1024, 1024), 1, "highest", "float32", "a"),
+]
+# The mixed16 solves at 16 probes: the JAX package pads 17 rows to 24, which
+# its slab's lane rule refuses (16 and 32 rows it takes), so it runs its
+# chain; here every bf16 vector is one class, on the kernel.  K2 and the
+# chain's bf16 GEMMs trade places there from run to run (PERF.md §6), so the
+# row is held to "a": a kernel, its time recorded.
+ROUTE_HELD_TO_A = {"lattice_dual_p16_bf16"}
+ROUTE_TOL = {"highest": 1e-5, "default": 2e-3, "bfloat16": 1e-2}
+ROUTE_CHAIN_S = 0.03  # seconds a timed chain of applications aims at
+
+
+def route_operands(lead, sizes, B, vdtype, seed=0):
+    """A call form's factors (orthogonal, so chained applications keep their
+    norm; a leading ``batch_identity`` of ``lead`` rows) and vector (drawn on
+    the card: up to 2^28 elements), on the card."""
+    import torch
+    from gp_grief_tpu_torch.ops.kron_fast import batch_identity
+
+    g = torch.Generator().manual_seed(seed)
+    fs = [torch.linalg.qr(torch.randn((m, m), generator=g, dtype=torch.float64))[0].float().contiguous().to(DEVICE)
+          for m in sizes]
+    if lead:
+        fs = [batch_identity(lead, device=DEVICE), *fs]
+    gv = torch.Generator(device=DEVICE).manual_seed(seed)
+    v = torch.randn((max(lead, 1) * int(np.prod(sizes)), B), generator=gv, device=DEVICE).to(getattr(torch, vdtype))
+    return fs, v
+
+
+def slope_ms(step, v) -> float:
+    """ms of one application of ``step`` by ``bench.py``'s method (the
+    slope between the best of 3 chains of 5 and 5 + N dependent applications,
+    CUDA events), N sized so that a long chain takes about ROUTE_CHAIN_S."""
+    import torch
+    from gp_grief_tpu_torch import bench
+
+    x = step(v)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(x)
+    torch.cuda.synchronize()
+    iters = int(min(50, max(10, ROUTE_CHAIN_S / max(time.perf_counter() - t0, 1e-6))))
+    return bench._chains(step, v, iters)[0] * 1e3
+
+
+def route_row(card: str, row, turns: int = 1) -> dict:
+    """One call form: ``kernel_route``'s route, the kernel (K2 or K3, by
+    ``kernel_for``, whatever the route) against its plain version, and the
+    kernel's and the chain's ms by :func:`slope_ms` (with ``turns`` = 2:
+    kernel, chain, chain, kernel, the lower of each)."""
+    import torch
+    from gp_grief_tpu_torch.ops.cuda import kron as tk
+    from gp_grief_tpu_torch.ops.kron_fast import kernel_route, kron_matvec_fast
+
+    name, site, lead, sizes, B, precision, vdtype, rule = row
+    fs, v = route_operands(lead, sizes, B, vdtype)
+    route = kernel_route(fs, B, precision, vector_dtype=v.dtype)
+    kernel = tk.kernel_for(fs, B)
+    fn = tk.kron_matvec_slab if kernel == "slab" else tk.kron_matvec_fused
+    fast = precision == "default" or vdtype == "bfloat16"
+    with torch.no_grad():
+        before, exact_before = fn.launches, fn.exact_tile_launches
+        got = kron_matvec_fast(fs, v, precision=precision, impl=kernel)
+        torch.cuda.synchronize()
+        passes, exact_passes = fn.launches - before, fn.exact_tile_launches - exact_before
+        plain = tk.kron_chain_ref(fs, v.float(), fast=fast)
+        rel = float(torch.linalg.norm((got.float() - plain).double()) / torch.linalg.norm(plain.double()))
+        abs_err = float((got.float() - plain).abs().max())
+        steps = {r: (lambda x, r=r: kron_matvec_fast(fs, x, precision=precision, impl=r)) for r in (kernel, "xla")}
+        times = {kernel: [], "xla": []}
+        for r in (kernel, "xla", "xla", kernel)[: 2 * turns]:
+            times[r].append(slope_ms(steps[r], v))
+        kernel_ms, chain_ms = min(times[kernel]), min(times["xla"])
+    tol = ROUTE_TOL["bfloat16" if vdtype == "bfloat16" else ("default" if fast else "highest")]
+    out = {"phase": "kron_route", "row": name, "site": site, "lead": lead, "sizes": list(sizes), "B": B,
+           "precision": precision, "vector": vdtype, "rule": rule, "route": route, "kernel": kernel,
+           "passes": passes, "exact_tile_passes": exact_passes, "rel_err_vs_plain": rel, "tol": tol,
+           "max_abs_err": abs_err, "kernel_ms": kernel_ms, "chain_ms": chain_ms, "card": card}
+    emit(out)
+    check(bool(torch.isfinite(got).all()) and got.shape == v.shape, f"route {name}: bad kernel output")
+    check(rel <= tol, f"route {name}: the kernel is {rel:.3e} from its plain version (limit {tol})")
+    check(rule != "a" or route != "chain", f"route {name}: the JAX package runs a Pallas kernel here, the port the chain")
+    check(rule != "b" or route == "chain" or kernel_ms < chain_ms,
+          f"route {name}: routed to {route} at {kernel_ms:.4f} ms against the chain's {chain_ms:.4f}")
+    del fs, v, got, plain
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_kron_routes(card: str, rows=None) -> list:
+    """Phase 6's route table: every call form of ROUTE_TABLE through
+    :func:`route_row`."""
+    return [route_row(card, row) for row in (ROUTE_TABLE if rows is None else rows)]
 
 
 # ---------------------------------------------------------------------------
@@ -1195,7 +1337,8 @@ def phase_kron_segmented(card: str, name: str, model, ll64: float) -> None:
     full size, twice (the runs bit-identical), held to the phase's float64
     Schur log-likelihood at GRID_CG_GAP_RTOL.  Its solve runs the exact
     operator, "highest", on the route ``kron_fast.kernel_route`` picks:
-    K3 at grid8x512x512_exact, the chain at grid32x5_mixed."""
+    K3 at grid8x512x512_exact, K2 at grid32x5_mixed (its exact tile member:
+    the Hopper gate's exact tile class)."""
     import torch
     from gp_grief_tpu_torch.ops.cuda import kron as tk
     from gp_grief_tpu_torch.ops.kron_fast import kernel_route
@@ -1217,6 +1360,8 @@ def phase_kron_segmented(card: str, name: str, model, ll64: float) -> None:
     check(ll2 == ll, f"{name}: two segmented NLML runs differ ({-ll} vs {-ll2})")
     check(route != "fused" or launches["K3"] > 0, f"{name}: the segmented NLML's route is K3 but K3 never launched")
     check(name != "grid8x512x512_exact" or route == "fused", f"{name}: the segmented NLML's route is {route}, not K3")
+    check(name != "grid32x5_mixed" or (route == "slab" and launches["K2"] > 0),
+          f"{name}: the segmented NLML's route is {route} ({launches}), not K2")
 
 
 # float64 on the card against the JAX package's float64 CPU run of the same
@@ -1467,6 +1612,58 @@ def phase_ski_f64(name: str, reference: dict) -> dict:
                   "predict_mean_10k": t_mean, "predict_var_256": t_var}}
 
 
+class BatchedApplies:
+    """While active, counts the Kronecker matvecs that ``models/gp_ski.py``
+    makes with a leading ``batch_identity``, by its rows and the vector's
+    dtype (``"B9_float32"``: the 1 + 8-row solves): the applies, the K2 and
+    K3 launches they made, and the applies that launched neither (the
+    chain).  It wraps the module's ``kron_matvec_fast`` and launches
+    nothing itself."""
+
+    def __enter__(self):
+        from gp_grief_tpu_torch.models import gp_ski
+        from gp_grief_tpu_torch.ops.cuda import kron as tk
+
+        self.stats, self._orig = {}, gp_ski.kron_matvec_fast
+
+        def counted(factors, v, **kw):
+            lead, core = tk.split_lead(factors)
+            k2, k3 = tk.kron_matvec_slab.launches, tk.kron_matvec_fused.launches
+            out = self._orig(factors, v, **kw)
+            if len(core) < len(factors):  # a batch_identity leads
+                key = f"B{lead}_{str(v.dtype).removeprefix('torch.')}"
+                e = self.stats.setdefault(key, {"applies": 0, "k2_launches": 0, "k3_launches": 0, "chain_applies": 0})
+                d2, d3 = tk.kron_matvec_slab.launches - k2, tk.kron_matvec_fused.launches - k3
+                e["applies"] += 1
+                e["k2_launches"] += d2
+                e["k3_launches"] += d3
+                e["chain_applies"] += int(d2 + d3 == 0)
+            return out
+
+        gp_ski.kron_matvec_fast = counted
+        return self
+
+    def __exit__(self, *exc):
+        from gp_grief_tpu_torch.models import gp_ski
+
+        gp_ski.kron_matvec_fast = self._orig
+        return False
+
+
+def check_on_k2(name: str, stats: dict, key: str, what: str = "") -> None:
+    """Every apply of ``stats[key]`` (a :class:`BatchedApplies` entry of SKI
+    configuration ``name``) ran the passes of K2's plan for its lattice, the
+    batch identity folded into the rows, and none the chain."""
+    from gp_grief_tpu_torch.ops.cuda.kron import _hopper_plan
+
+    lattice = (SKI_CONFIGS[name]["m"],) * SKI_D
+    passes = len(_hopper_plan(lattice, lattice, 1))
+    e = stats.get(key)
+    check(e is not None and e["applies"] > 0, f"{name}{what}: no {key} apply")
+    check(e["chain_applies"] == 0 and e["k2_launches"] == passes * e["applies"],
+          f"{name}{what}: {key} applies not all on K2's {passes} passes: {e}")
+
+
 def phase_ski(card: str, name: str, ref64: dict) -> dict:
     """One SKI configuration in float32 through ``GPSKIRegression`` on the
     card, held to its float64 run (``phase_ski_f64``); returns the kernel
@@ -1493,7 +1690,7 @@ def phase_ski(card: str, name: str, ref64: dict) -> dict:
     # (b) The NLML as a user calls it (the model's own probes), profiled.
     torch.cuda.synchronize()
     before = counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with BatchedApplies() as batched, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         nl_own = -model.log_likelihood()
         torch.cuda.synchronize()
@@ -1519,7 +1716,8 @@ def phase_ski(card: str, name: str, ref64: dict) -> dict:
            "var_rel_err_vs_f64": var_err, "var_tol": tol["var"],
            "nlml_f32_own_probes": nl_own, "cg_iterations": info.iterations,
            "cg_rel_residual": float(info.residual_norm[0]) / float(torch.linalg.norm(model.y.double())),
-           "launches_in_nlml": launched, "nlml_wall_ms": wall * 1e3, "nlml_device_ms": dev_total,
+           "launches_in_nlml": launched, "batched_applies_in_nlml": batched.stats,
+           "nlml_wall_ms": wall * 1e3, "nlml_device_ms": dev_total,
            "idle_share": 1 - dev_total / (wall * 1e3), "device_items": items,
            "plan_build_s": dict(model.plan_seconds),
            "var_min": float(var.min()), "var_max": float(var.max()),
@@ -1545,9 +1743,10 @@ def phase_ski(card: str, name: str, ref64: dict) -> dict:
     check(mean_err <= tol["mean"], f"{name}: f32 mean off the f64 mean by {mean_err:.3e} of its scale")
     check(var_err <= tol["var"], f"{name}: f32 variance off the f64 one by {var_err:.3e} of its scale")
     check(np.isfinite(nl_own), f"{name}: non-finite NLML")
+    check_on_k2(name, batched.stats, "B9_float32")
     del model
     torch.cuda.empty_cache()
-    return launched
+    return {**launched, "batched": batched.stats}
 
 
 # ---------------------------------------------------------------------------
@@ -1985,13 +2184,15 @@ def phase_ski_grad_f64(name: str) -> dict:
             "k4_launches_in_backward": adjoint, "grad_rel_err": err, "nlml_rel_err": nl_err, "tol": SKI_GRAD_F64_RTOL, "s": t}
 
 
-def phase_ski_train(card: str, name: str) -> None:
+def phase_ski_train(card: str, name: str) -> dict:
     """One SKI configuration trained by ``optimize_segmented`` in float32 at
     full size (SKI_TRAIN), each variant twice from the same start (the second
     run profiled per step): the same bits both times and a lower NLML
     (``log_likelihood``, the model's own probes).  ski1m_lattice runs its step
     solves in float32 and then in bf16 (``train_mixed16``), and its
-    ``log_likelihood_segmented`` against ``log_likelihood``."""
+    ``log_likelihood_segmented`` against ``log_likelihood``.  Returns the
+    first run of each variant's :class:`BatchedApplies` counts; on
+    ski1m_lattice every 1 + 8-row Q/Qᵀ apply must have run K2."""
     import torch
     from gp_grief_tpu_torch.ops.cuda import interp_wt, kron_matvec_fused, kron_matvec_slab, wtw_stencil
 
@@ -2004,6 +2205,7 @@ def phase_ski_train(card: str, name: str) -> None:
     start = [p.detach().clone() for _, p in model._leaves()]
     out = {"phase": "ski_train", "config": name, "n": SKI_CONFIGS[name]["n"], "M": model.M, **SKI_CONFIGS[name]["model"],
            **SKI_TRAIN[name], "f64_grad": f64, "nlml_before": -ll0, "variants": {}}
+    batched_by_variant = {}
     for mixed in ((False, True) if lattice else (False,)):
         model._train_mixed16 = mixed
         runs = []
@@ -2011,16 +2213,20 @@ def phase_ski_train(card: str, name: str) -> None:
             with torch.no_grad():
                 for (_, p), v in zip(model._leaves(), start):
                     p.copy_(v)
-            with StepStats(kernels, profiled) as stats:
+            with BatchedApplies() as batched, StepStats(kernels, profiled) as stats:
                 res = model.optimize_segmented(callback=lambda it, value, info: stats.step(surrogate=value, **info),
                                                **SKI_TRAIN[name])
             runs.append((res, [p.detach().clone() for _, p in model._leaves()], stats))
+            if not profiled:
+                batched_by_variant["mixed16" if mixed else "float32"] = batched.stats
         (r0, p0, st0), (r1, p1, st1) = runs
         rows0 = st0.rows
         ll1 = model.log_likelihood()
         identical = np.array_equal(r0.losses, r1.losses) and same_bits(p0, p1)
-        out["variants"]["mixed16" if mixed else "float32"] = {
+        variant = "mixed16" if mixed else "float32"
+        out["variants"][variant] = {
             "nlml_after": -ll1, "surrogate": r0.losses.tolist(), "runs_identical": identical,
+            "batched_applies": batched_by_variant[variant],
             "params_after": torch.cat([p.reshape(-1) for p in p0]).tolist(),
             "steps": merged_steps(rows0, st1.rows), "device_ms_profiled_run": st1.device_total_ms,
             "device_by_kind_ms_profiled_run": st1.device_by_kind_ms,
@@ -2031,6 +2237,8 @@ def phase_ski_train(card: str, name: str) -> None:
         if lattice:
             check(all(r["launches"]["K5"] > 0 and r["launches"]["K2"] > 0 for r in rows0),
                   f"{name}: a training step never launched K5 or K2")
+            check_on_k2(name, batched_by_variant[variant], "B9_bfloat16" if mixed else "B9_float32",
+                        f" (train_mixed16={mixed})")
     if lattice:
         ll, t_ll = timed(model.log_likelihood)
         ll_seg, t_seg = timed(lambda: model.log_likelihood_segmented(probe_chunk=4))
@@ -2041,6 +2249,7 @@ def phase_ski_train(card: str, name: str) -> None:
     emit({**out, "card": card})
     del model
     torch.cuda.empty_cache()
+    return batched_by_variant
 
 
 # ---------------------------------------------------------------------------
@@ -2845,7 +3054,8 @@ def main() -> int:
                         "replaces": replaces, "launches": fn.launches, "max_abs_err": k["max_abs_err"],
                         "ms": k["ms"], "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
                         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": k["library_ms"],
-                        "chain_ms": k["chain_ms"], **({"x3": k["x3"]} if "x3" in k else {})})
+                        "chain_ms": k["chain_ms"], "route_table_rows": k["routes"],
+                        **({"x3": k["x3"]} if "x3" in k else {})})
         exact_counts(entries[-1], fn)
 
     # Phase 9: the SKI path.  The float64 runs (parity, and the float32 runs'
@@ -2889,8 +3099,7 @@ def main() -> int:
     reset()
     for name in GRID_CONFIGS:
         phase_grid_train(card, name)
-    for name in SKI_CONFIGS:
-        phase_ski_train(card, name)
+    batched_train = {name: phase_ski_train(card, name) for name in SKI_CONFIGS}
     check([e["name"] for e in entries] == ["phi_fused", "kron_slab", "kron_fused", "interp_wt", "wtw_stencil",
                                            "kron_matmat_cuda", "last_slab_pass", "tail3_pass", "tail2_pass"],
           "the kernels line's entries are out of the counters' order")
@@ -2899,6 +3108,10 @@ def main() -> int:
         exact_counts(entry, fn, "training_exact_tile_launches")
     for fn in (kron_matvec_slab, kron_matvec_fused, interp_wt, wtw_stencil):
         check(fn.launches > 0, f"the training phases never launched {fn.__name__}")
+    # The SKI solves' batched Kronecker applies (batch_identity rows) and the
+    # K2 launches they made: phase 9's profiled NLMLs, phase 12's first runs.
+    entries[1]["batched_applies"] = {"nlml": {c: per_nlml[c]["batched"] for c in SKI_CONFIGS},
+                                     "train": batched_train}
 
     # Phase 13: GPRegression's iterative path, which launches no kernel of the
     # port (its Gram slabs are PyTorch ops).

@@ -61,7 +61,7 @@ from gp_grief_tpu_torch.ops.interp import (
 )
 from gp_grief_tpu_torch.ops.interp_stencil import build_wtw_stencil, make_wtw_stencil_op
 from gp_grief_tpu_torch.ops.kron import kron_eigh, lam_kron
-from gp_grief_tpu_torch.ops.kron_fast import X3, kron_matvec_fast
+from gp_grief_tpu_torch.ops.kron_fast import X3, batch_identity, kron_matvec_fast
 from gp_grief_tpu_torch.ops.precond import lowrank_spectral_factor, lowrank_sqrt_ops
 from gp_grief_tpu_torch.ops.solve import cholesky
 from gp_grief_tpu_torch.ops.topk import top_p_kron_eigs
@@ -129,6 +129,18 @@ def _timed_plan(fn):
         return out
 
     return functools.cached_property(build)
+
+
+def _dual_quad(yty64: torch.Tensor, vt: torch.Tensor, gam: torch.Tensor, white, sigma2) -> torch.Tensor:
+    """The lattice dual's data term ``quad = (yᵀy − 2ṽᵀγ + γᵀW̃γ)/σ²`` in
+    ``gam``'s dtype, from ``yᵀy`` summed in float64.  The three sums cancel
+    to about 1/127 of themselves before σ² (0.05 at ski1m_lattice) scales
+    them up, so each is accumulated in float64: in float32 one rounding of a
+    10⁶-term dot moves the NLML by 0.3 (5e-7 of it), more than a sharded
+    run's true gap to one card (``tools/ski_shard_terms.py``)."""
+    f64 = torch.float64
+    quad = yty64 - 2.0 * torch.dot(vt.to(f64), gam.to(f64)) + torch.dot(gam.to(f64), white(gam[None, :])[0].to(f64))
+    return (quad / sigma2).to(gam.dtype)
 
 
 class GPSKIRegression(BaseModel):
@@ -304,13 +316,13 @@ class GPSKIRegression(BaseModel):
         """Batch-major ``(K̂ + σ²I)``: ``v (B, n) → (B, n)``, the batch folded
         into the Kronecker structure as a leading identity factor
         (``I_B ⊗ (⊗K_d)`` on the ``(B·M,)`` flat vector), the JAX package's
-        call form, so ``kron_matvec_fast``'s gates see the same factors."""
+        call form; a ``batch_identity``, so K2/K3 fold it into their rows."""
         precision = "highest" if precision is None else precision
 
         def mv(v):
             B = int(v.shape[0])
             u = self._rmatvec_bm(v)
-            eyeB = torch.eye(B, dtype=v.dtype, device=v.device)
+            eyeB = batch_identity(B, dtype=v.dtype, device=v.device)
             u = kron_matvec_fast((eyeB, *factors), u.reshape(-1), precision=precision).reshape(B, -1)
             return self._w_bm(u) + sigma2 * v
 
@@ -419,7 +431,7 @@ class GPSKIRegression(BaseModel):
         mv_in = (lambda t: t.to(torch.bfloat16)) if mixed16 else (lambda t: t)
 
         def kron(fs, t, B):
-            eyeB = torch.eye(B, dtype=wd, device=t.device)
+            eyeB = batch_identity(B, dtype=wd, device=t.device)
             return kron_matvec_fast((eyeB, *fs), mv_in(t), precision=prec).reshape(B, -1).to(wd)
 
         def to_dual(v_bm):
@@ -522,8 +534,7 @@ class GPSKIRegression(BaseModel):
         closed-form terms differentiate exactly, ``log|W̃|`` (value
         ``ld_white``) carries the Hutchinson surrogate ``Σ S ⊙ W̃z / R``."""
         gam = sol[0]
-        quad = (torch.dot(self.y, self.y) - 2.0 * torch.dot(vt[0], gam)
-                + torch.dot(gam, white(gam[None, :])[0])) / sigma2
+        quad = _dual_quad(torch.dot(self.y.double(), self.y.double()), vt[0], gam, white, sigma2)
         ld_white = self._surrogate(ld_white, lambda: torch.sum(sol[1:] * white(z)) / z.shape[0])
         ld = (self.n - self.M) * self.log_noise + ld_MK + ld_white
         return 0.5 * (quad + ld + self.n * math.log(2.0 * math.pi))
@@ -791,7 +802,7 @@ class GPSKIRegression(BaseModel):
                 return prep
             res = _lz.lanczos(self._matvec(factors, sigma2), self.y, var_rank, full_reorth=True, store_basis=True)
             QW = self._rmatvec_bm(res.Q.T.contiguous())  # (r, M)
-            eyeR = torch.eye(var_rank, dtype=self.dtype, device=self.device)
+            eyeR = batch_identity(var_rank, dtype=self.dtype, device=self.device)
             S = kron_matvec_fast((eyeR, *factors), QW.reshape(-1), precision="highest").reshape(var_rank, -1)
         # Dense T; identity rows past breakdown (their Q columns are zero).
         valid = torch.arange(var_rank, device=self.device) < res.num_valid
@@ -810,7 +821,7 @@ class GPSKIRegression(BaseModel):
             return mean, torch.zeros_like(mean)
         prior_diag = self._prior_diag(factors, iw_c)
         c = int(xc.shape[0])
-        eyeC = torch.eye(c, dtype=self.dtype, device=self.device)
+        eyeC = batch_identity(c, dtype=self.dtype, device=self.device)
         Wst_bm = interp_rmatvec_bm(iw_c, eyeC)  # (c, M) test interpolation rows w*_t
         if self.solver == "lattice":
             to_dual, from_dual, white = prep["ops"]

@@ -39,12 +39,21 @@ its tile passes on the tensor-core tile member (bf16 ``mma.sync``) wherever
 that member takes the group (:func:`_mma_tile_ok`), else on the FP32 tile
 member.  A bf16 input vector forces ``"default"`` and gives a bf16 result.
 
-The routing gates :func:`slab_schedule_applicable`,
-:func:`fused_schedule_applicable` and :func:`_fused_schedule` are copied from
-``kron_pallas.py`` unchanged, so that ``ops.kron_fast.kron_matvec_fast``
-sends a given shape and precision to the same kernel as the JAX package.
-Their lane and VMEM arithmetic describes the TPU kernels, not these; gates
-derived for Hopper are later work.
+A leading batch identity made by :func:`batch_identity` (the solvers' ``(I_B,
+*factors)`` call form) is never contracted as a matrix: the wrappers fold it
+into the plan's ``lead`` rows (:func:`split_lead`), on the card and in the
+plain version alike.  :func:`plan_takes` says whether every pass of the
+plan is within what its member takes; :func:`kernel_for` names the wrapper
+that takes a product (K2: square factors, d ≥ 3, every axis on the tile
+members; K3: the rest).
+
+:func:`slab_schedule_applicable`, :func:`fused_schedule_applicable` and
+:func:`_fused_schedule` are copied from ``kron_pallas.py`` unchanged, as the
+record of where the JAX package sends a product on a TPU.  Their lane and
+VMEM arithmetic describes the TPU kernels, not these, and they decide no
+route of the port: ``ops.kron_fast.kernel_route`` routes by the Hopper plan
+and this card's measurements, and the tests hold it to send every product
+these gates send to a Pallas kernel to K2/K3.
 """
 
 from __future__ import annotations
@@ -58,6 +67,11 @@ import torch
 from gp_grief_tpu_torch.ops.cuda._build import load_library
 
 __all__ = [
+    "batch_identity",
+    "kernel_for",
+    "plan_takes",
+    "split_lead",
+    "tile_only",
     "kron_chain_ref",
     "kron_matvec_slab",
     "kron_matvec_fused",
@@ -235,13 +249,6 @@ def _fused_schedule(ms: Sequence[int], outs: Sequence[int], B: int, itemsize: in
         mid_groups.append((i, j))
         i = j + 1
     return mid_groups, tail_start
-
-
-@functools.lru_cache(maxsize=256)
-def _fused_feasible(ms: tuple, outs: tuple, B: int, itemsize: int) -> bool:
-    """Whether :func:`_fused_schedule` plans these shapes; cached, as
-    :func:`kron_matvec_fused` asks on every call."""
-    return _fused_schedule(ms, outs, B, itemsize) is not None
 
 
 def fused_schedule_applicable(
@@ -582,6 +589,87 @@ def _hopper_plan(ms: Sequence[int], outs: Sequence[int], B: int):
     return passes
 
 
+# The attribute that marks a tensor made by batch_identity.
+_LEAD_MARK = "kron_batch_identity"
+
+
+def batch_identity(n: int, *, dtype=torch.float32, device=None) -> torch.Tensor:
+    """``torch.eye(n)`` marked as the leading batch identity of ``(I_n ⊗ (⊗
+    K_d))``, the solvers' ``(I_B, *factors)`` call form.  K2 and K3 fold it
+    into their plan's ``lead`` rows and never contract it as a matrix; every
+    other consumer (the chain, the copied gates) sees the identity matrix it
+    is.  The mark is an attribute of this tensor, so nothing reads its values
+    to recognise it; a copy (``.to``, ``.clone``) is an ordinary matrix."""
+    eye = torch.eye(n, dtype=dtype, device=device)
+    setattr(eye, _LEAD_MARK, True)
+    return eye
+
+
+def split_lead(factors: Sequence[torch.Tensor]) -> tuple[int, tuple]:
+    """``(lead, core)``: the size of a leading :func:`batch_identity` and the
+    factors after it, or ``(1, factors)`` where there is none."""
+    if len(factors) > 1 and getattr(factors[0], _LEAD_MARK, False):
+        return int(factors[0].shape[0]), tuple(factors[1:])
+    return 1, tuple(factors)
+
+
+_INT32_MAX = 2**31 - 1
+
+
+@functools.lru_cache(maxsize=512)
+def _plan_takes(ms: tuple, outs: tuple, B: int, lead: int, fast: bool) -> bool:
+    for _, _, _, wide, args in _passes(ms, outs, B, lead, None, fast):
+        if wide:  # csrc gp_grief_kron_wide_pass: C = X·Kᵀ (post = 1) takes pre rows, C_p = K·X_p post columns
+            n, o, pre, post, _ = args
+            if max(n, o, pre if post == 1 else post) > _INT32_MAX:
+                return False
+        else:  # gp_grief_kron_tile_pass: every axis at most 64 points; the members' shared memory
+            g, n, o, (pre, post, P, R, mma) = args[0], args[1:4], args[4:7], args[7:]
+            ns, os_ = n[:g], o[:g]
+            if max(ns) > _TILE_MAX_AXIS or P < 1 or P > post or R < 1:
+                return False
+            if mma:
+                ok = _mma_tile_ok(ns, os_, P) and _mma_tile_smem_bytes(ns, os_, P, R) <= _SMEM_LIMIT
+            elif fast:
+                ok = _tile_smem_bytes(ns, os_, P, R) <= _SMEM_LIMIT
+            else:
+                ok = max(os_) <= _TILE_MAX_OUT and _exact_tile_layout(ns, os_, P, R, post)[0] <= _SMEM_LIMIT
+            if not ok:
+                return False
+    return True
+
+
+def plan_takes(factors: Sequence[torch.Tensor], B: int = 1, *, fast: bool = False) -> bool:
+    """Whether K2/K3 take ``(⊗ K_d) · V`` (``V`` with ``B`` columns) at a
+    grade: matrices, and every pass of the Hopper plan (:func:`_hopper_plan`,
+    a leading :func:`batch_identity` folded into ``lead``) within the limits
+    of ``gp_grief_kron_tile_pass`` / ``gp_grief_kron_wide_pass``
+    (csrc/kron_pass.cu).  Cached by shape."""
+    lead, core = split_lead(factors)
+    if not core or any(K.ndim != 2 for K in core):
+        return False
+    ms = tuple(int(K.shape[1]) for K in core)
+    outs = tuple(int(K.shape[0]) for K in core)
+    return min(*ms, *outs, B, lead) >= 1 and _plan_takes(ms, outs, int(B), lead, bool(fast))
+
+
+@functools.lru_cache(maxsize=512)
+def tile_only(ms: tuple, outs: tuple, B: int) -> bool:
+    """Whether every pass of the Hopper plan of factors ``(o_d, m_d)`` is a
+    tile pass (every axis on the tile members, none on the wide one)."""
+    return all(P > 0 for *_, P in _hopper_plan(ms, outs, B))
+
+
+def kernel_for(factors: Sequence[torch.Tensor], B: int = 1) -> str:
+    """The wrapper that takes a product: ``"slab"`` (K2) for square factors,
+    d ≥ 3 and a plan of tile passes only (a leading :func:`batch_identity`
+    folded), else ``"fused"`` (K3)."""
+    _, core = split_lead(factors)
+    ms = tuple(int(K.shape[1]) for K in core)
+    outs = tuple(int(K.shape[0]) for K in core)
+    return "slab" if len(ms) >= 3 and ms == outs and tile_only(ms, outs, int(B)) else "fused"
+
+
 def _bf16_round(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).to(t.dtype)
 
@@ -592,7 +680,17 @@ def kron_chain_ref(factors: Sequence[torch.Tensor], v: torch.Tensor, *, fast: bo
     the kernels' passes run.  ``fast`` rounds both operands of
     every contraction to bf16 (products accumulate in the working precision),
     which also stands for the kernels' bf16 storage between passes.  Computes
-    in float64 for a float64 ``v``, else float32; returns ``v``'s dtype."""
+    in float64 for a float64 ``v``, else float32; returns ``v``'s dtype.
+
+    A leading :func:`batch_identity` is folded into the rows, as the kernels
+    fold it: at the exact grade the result is the unfolded chain's, bit for
+    bit (an identity contraction adds exact zeros); at ``fast`` it skips that
+    contraction's bf16 rounding of its input."""
+    return _chain_ref(*split_lead(factors), v, fast)
+
+
+def _chain_ref(lead: int, factors, v: torch.Tensor, fast: bool) -> torch.Tensor:
+    """:func:`kron_chain_ref` of ``(I_lead ⊗ (⊗ K_d))``, ``v`` ``(lead·M, B)``."""
     work = torch.float64 if v.dtype == torch.float64 else torch.float32
     ms = [int(K.shape[1]) for K in factors]
     cur = list(ms)
@@ -602,7 +700,7 @@ def kron_chain_ref(factors: Sequence[torch.Tensor], v: torch.Tensor, *, fast: bo
         K = factors[t].to(work)
         if fast:
             K, x = _bf16_round(K), _bf16_round(x)
-        pre, post = math.prod(cur[:t]), math.prod(cur[t + 1 :]) * B
+        pre, post = lead * math.prod(cur[:t]), math.prod(cur[t + 1 :]) * B
         x = torch.einsum("ok,pkq->poq", K, x.reshape(pre, cur[t], post))
         cur[t] = int(K.shape[0])
     return x.reshape(-1, B).to(v.dtype)
@@ -690,36 +788,39 @@ def _launch(which, factors, v: torch.Tensor, fast: bool, mid_dtype, B: int, *, l
     return x
 
 
-def _forward(which, factors, v: torch.Tensor, fast: bool, mid_dtype) -> torch.Tensor:
+def _forward(which, lead: int, factors, v: torch.Tensor, fast: bool, mid_dtype) -> torch.Tensor:
     if v.is_cuda:
-        return _launch(which, factors, v, fast, mid_dtype, v.shape[1]).reshape(-1, v.shape[1])
+        return _launch(which, factors, v, fast, mid_dtype, v.shape[1], lead=lead).reshape(-1, v.shape[1])
     if v.device.type == "cpu":
-        return kron_chain_ref(factors, v, fast=fast)
+        return _chain_ref(lead, factors, v, fast)
     raise ValueError(f"{which.__name__}: no kernel for device {v.device}")
 
 
 def _apply(which, fast: bool, mid_dtype, v: torch.Tensor, factors) -> torch.Tensor:
     """``(⊗ K_d) · v`` through :class:`_KronMatvec` where autograd records
-    it, else its forward alone (a solver's matvec: no graph to build)."""
-    if torch.is_grad_enabled() and (v.requires_grad or any(K.requires_grad for K in factors)):
-        return _KronMatvec.apply(which, fast, mid_dtype, v, *factors)
-    return _forward(which, factors, v, fast, mid_dtype)
+    it, else its forward alone (a solver's matvec: no graph to build).  A
+    leading :func:`batch_identity` is folded into ``lead``."""
+    lead, core = split_lead(factors)
+    if torch.is_grad_enabled() and (v.requires_grad or any(K.requires_grad for K in core)):
+        return _KronMatvec.apply(which, fast, mid_dtype, lead, v, *core)
+    return _forward(which, lead, core, v, fast, mid_dtype)
 
 
 class _KronMatvec(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, which, fast, mid_dtype, v, *factors):
+    def forward(ctx, which, fast, mid_dtype, lead, v, *factors):
+        ctx.lead = lead
         ctx.save_for_backward(v, *factors)
-        return _forward(which, factors, v, fast, mid_dtype)
+        return _forward(which, lead, factors, v, fast, mid_dtype)
 
     @staticmethod
     def backward(ctx, g):
         v, *factors = ctx.saved_tensors
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_() for t in (v, *factors)]
-            out = kron_chain_ref(leaves[1:], leaves[0])
+            out = _chain_ref(ctx.lead, leaves[1:], leaves[0], False)
         grads = torch.autograd.grad(out, leaves, g, allow_unused=True)
-        return (None, None, None, *grads)
+        return (None, None, None, None, *grads)
 
 
 def _check(name, factors, v):
@@ -748,19 +849,18 @@ def kron_matvec_slab(
     precision: str = "highest",
     mid_dtype=None,
 ) -> torch.Tensor:
-    """K2: ``(⊗ K_d) · v`` for square factors and d ≥ 3; ``v`` ``(M,)`` or
-    ``(M, B)``.  ``mid_dtype=torch.bfloat16`` stores the vector between
-    passes as bf16 (halving that traffic; meaningful at ``"default"``, whose
-    operand rounding it matches).  Differentiable."""
+    """K2: ``(⊗ K_d) · v`` for square factors and d ≥ 3 (a leading
+    :func:`batch_identity` aside, which is folded into the plan's rows); ``v``
+    ``(M,)`` or ``(M, B)``.  ``mid_dtype=torch.bfloat16`` stores the vector
+    between passes as bf16 (halving that traffic; meaningful at
+    ``"default"``, whose operand rounding it matches).  Differentiable."""
     _check("kron_matvec_slab", factors, v)
-    if len(factors) < 3 or any(K.shape[0] != K.shape[1] for K in factors):
-        raise ValueError("kron_matvec_slab takes d >= 3 square factors (gate with slab_schedule_applicable)")
+    _, core = split_lead(factors)
+    if len(core) < 3 or any(K.shape[0] != K.shape[1] for K in core):
+        raise ValueError("kron_matvec_slab takes d >= 3 square factors (route with ops.kron_fast.kernel_route)")
     if mid_dtype not in (None, torch.bfloat16):
         raise ValueError(f"mid_dtype must be None or torch.bfloat16, got {mid_dtype}")
-    squeeze = v.ndim == 1
-    vv = v[:, None] if squeeze else v
-    out = _apply(kron_matvec_slab, _grade(precision, v), mid_dtype, vv, factors)
-    return out[:, 0] if squeeze else out
+    return _wrapped(kron_matvec_slab, factors, v, precision, mid_dtype)
 
 
 def kron_matvec_fused(
@@ -769,18 +869,24 @@ def kron_matvec_fused(
     *,
     precision: str = "highest",
 ) -> torch.Tensor:
-    """K3: ``(⊗ K_d) · v`` for every shape :func:`_fused_schedule` plans
-    (ragged, rectangular, d = 2, leading identity); ``v`` ``(M,)`` or
+    """K3: ``(⊗ K_d) · v`` for every product the Hopper plan takes
+    (:func:`plan_takes`: ragged, rectangular, d ≤ 2, wide factors; a leading
+    :func:`batch_identity` folded into the plan's rows); ``v`` ``(M,)`` or
     ``(M, B)``.  Differentiable."""
     _check("kron_matvec_fused", factors, v)
-    B = 1 if v.ndim == 1 else int(v.shape[1])
-    ms = tuple(int(K.shape[1]) for K in factors)
-    outs = tuple(int(K.shape[0]) for K in factors)
-    if not _fused_feasible(ms, outs, B, int(factors[0].dtype.itemsize)):
-        raise ValueError("kron_matvec_fused: no feasible plan (gate with fused_schedule_applicable)")
+    return _wrapped(kron_matvec_fused, factors, v, precision, None)
+
+
+def _wrapped(which, factors, v: torch.Tensor, precision: str, mid_dtype) -> torch.Tensor:
+    """K2/K3 after their own checks: ``v`` ``(M,)`` or ``(M, B)``; raises
+    where the plan does not take the product."""
+    fast = _grade(precision, v)
     squeeze = v.ndim == 1
     vv = v[:, None] if squeeze else v
-    out = _apply(kron_matvec_fused, _grade(precision, v), None, vv, factors)
+    if not plan_takes(factors, int(vv.shape[1]), fast=fast):
+        raise ValueError(f"{which.__name__}: the Hopper pass plan does not take factors "
+                         f"{[tuple(K.shape) for K in factors]} with B = {vv.shape[1]}")
+    out = _apply(which, fast, mid_dtype, vv, factors)
     return out[:, 0] if squeeze else out
 
 

@@ -31,7 +31,8 @@ from torch.utils.checkpoint import checkpoint
 
 from gp_grief_tpu_torch.kernels.grief import GriefBasis, build_basis, phi
 from gp_grief_tpu_torch.models.base import BasisStats, basis_nlml
-from gp_grief_tpu_torch.ops.kron_fast import kernel_route, kron_matvec_fast
+from gp_grief_tpu_torch.ops.cuda.kron import kernel_for
+from gp_grief_tpu_torch.ops.kron_fast import batch_identity, kernel_route, kron_matvec_fast
 from gp_grief_tpu_torch.ops.collectives import (
     all_gather,
     axis_index,
@@ -191,20 +192,18 @@ def sharded_grief_nlml(
     return basis_nlml(stats, params["log_w"], params["log_noise"])
 
 
-def _local_route(factors, rest, B: int, m1_loc: int, precision, v: torch.Tensor) -> bool:
-    """True when a rank's trailing product should run K3: wherever the whole
-    product would take it (so that sharding keeps the single-card
-    arithmetic) and the rank's block ``(I_{m₁/k} ⊗ rest)`` has a feasible
-    K3 plan."""
-    if not v.is_cuda:
-        return False
+def _local_route(factors, block, B: int, precision, v: torch.Tensor):
+    """The kernel (``"slab"`` / ``"fused"``) a rank's trailing product runs
+    on: its ``block`` ``(I_{m₁/k} ⊗ rest)``, the rank's leading rows a
+    ``batch_identity``, wherever the whole product would take a kernel (so
+    that sharding keeps the single card's route) and the Hopper plan takes
+    the block.  None: the chain."""
+    if not v.is_cuda or kernel_route(factors, B, precision, vector_dtype=v.dtype) == "chain":
+        return None
     try:
-        if kernel_route(factors, B, precision, vector_dtype=v.dtype) != "fused":
-            return False
-        eye = torch.eye(m1_loc, dtype=rest[0].dtype, device=rest[0].device)
-        return kernel_route((eye, *rest), B, precision, vector_dtype=v.dtype, impl="fused") == "fused"
+        return kernel_route(block, B, precision, vector_dtype=v.dtype, impl=kernel_for(block, B))
     except ValueError:
-        return False
+        return None
 
 
 def kron_matvec_sharded(factors, v: torch.Tensor, mesh, *, axis_name: str = "model",
@@ -216,7 +215,7 @@ def kron_matvec_sharded(factors, v: torch.Tensor, mesh, *, axis_name: str = "mod
     ``k`` the axis size (rank ``j`` holds leading indices
     ``a₁ ∈ [j·m₁/k, (j+1)·m₁/k)``); returns its block of the product.  The
     trailing factors act within the block (``kron_matvec_fast``, so kernels
-    K2/K3 on the card; K3 wherever the whole product would take it), the
+    K2/K3 on the card wherever the whole product would take one), the
     leading factor's column slice ``K₁[:, block]`` is one ``torch.matmul``,
     and one ``reduce_scatter`` returns each rank its output rows.  ``m₁``
     (and the leading output size) must divide by ``k``.  Gradients reach the
@@ -234,11 +233,11 @@ def kron_matvec_sharded(factors, v: torch.Tensor, mesh, *, axis_name: str = "mod
     factors = replicate(tuple(K.contiguous() for K in factors), group)
     K1, rest = factors[0], tuple(factors[1:])
     x3 = v2.reshape(m1_loc, R, B)
-    if rest and _local_route(factors, rest, B, m1_loc, precision, v2):
-        # K3 on the block as the single card runs it: the rank's leading
-        # rows folded in as an identity factor.
-        eye = torch.eye(m1_loc, dtype=K1.dtype, device=K1.device)
-        yk = kron_matvec_fast((eye, *rest), v2.reshape(m1_loc * R, B), precision=precision, impl="fused")
+    block = (batch_identity(m1_loc, dtype=K1.dtype, device=K1.device), *rest) if rest else None
+    route = _local_route(factors, block, B, precision, v2) if rest else None
+    if route:
+        # The kernel on the block, the rank's leading rows the plan's lead.
+        yk = kron_matvec_fast(block, v2.reshape(m1_loc * R, B), precision=precision, impl=route)
         Ro = int(yk.shape[0]) // m1_loc
         yk = yk.reshape(m1_loc, Ro, B)
     elif rest:

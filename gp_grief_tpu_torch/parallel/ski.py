@@ -46,6 +46,7 @@ from gp_grief_tpu_torch.models.gp_grief import _resolve_dtype
 from gp_grief_tpu_torch.models.gp_ski import (
     TIE_QUANTUM,
     GPSKIRegression,
+    _dual_quad,
     _kron_eigh_canonical,
     _timed_plan,
     warn_lattice_small_n,
@@ -55,7 +56,7 @@ from gp_grief_tpu_torch.ops.cg import cg_segments, cg_solve, cg_solve_refined
 from gp_grief_tpu_torch.ops.fused import fused_cg_slq
 from gp_grief_tpu_torch.ops.interp import build_corner_stream, build_interp_plan, interp_weights
 from gp_grief_tpu_torch.ops.interp_stencil import build_wtw_stencil
-from gp_grief_tpu_torch.ops.kron_fast import kron_matvec_fast
+from gp_grief_tpu_torch.ops.kron_fast import batch_identity, kron_matvec_fast
 from gp_grief_tpu_torch.ops.solve import stable_cholesky
 from gp_grief_tpu_torch.ops.topk import top_p_kron_eigs
 from gp_grief_tpu_torch.ops.collectives import axis_index, axis_size, psum, replicate
@@ -197,7 +198,7 @@ class ShardedGPSKIRegression(GPSKIRegression):
         self.mask = torch.as_tensor(mask[rows], dtype=dtype, device=device)
         self._x_real_np = xp[rows][mask[rows] > 0]
         with torch.no_grad():
-            self._yy = psum(torch.dot(self.y, self.y), self.group)
+            self._yy = psum(torch.dot(self.y.double(), self.y.double()), self.group)
         if solver == "lattice":
             # diag(ŴᵀŴ)'s mean over the real rows of every rank: one psum.
             st = self._real_stream
@@ -254,7 +255,7 @@ class ShardedGPSKIRegression(GPSKIRegression):
         def mv(v):
             B = int(v.shape[0])
             u = self._wt_masked(v)
-            eyeB = torch.eye(B, dtype=v.dtype, device=v.device)
+            eyeB = batch_identity(B, dtype=v.dtype, device=v.device)
             u = kron_matvec_fast((eyeB, *factors), u.reshape(-1), precision=precision).reshape(B, -1)
             return self._w_bm(replicate(u, group)) * mk + sigma2_r * v
 
@@ -334,7 +335,7 @@ class ShardedGPSKIRegression(GPSKIRegression):
 
     def _lattice_objective(self, sigma2, white, vt, ld_MK, sol, z, ld_white):
         gam = sol[0]
-        quad = (self._yy - 2.0 * torch.dot(vt[0], gam) + torch.dot(gam, white(gam[None, :])[0])) / sigma2
+        quad = _dual_quad(self._yy, vt[0], gam, white, sigma2)
         ld_white = self._surrogate(ld_white, lambda: torch.sum(sol[1:] * white(z)) / z.shape[0])
         ld = (self.n_real - self.M) * self.log_noise + ld_MK + ld_white
         return 0.5 * (quad + ld + self.n_real * math.log(2.0 * math.pi))
@@ -454,7 +455,7 @@ class ShardedGPSKIRegression(GPSKIRegression):
         iw_c = interp_weights(xc, self.xg)
         mean = interp_matvec(iw_c, prep["Kw_alpha"])
         c = int(xc.shape[0])
-        eyeC = torch.eye(c, dtype=self.dtype, device=self.device)
+        eyeC = batch_identity(c, dtype=self.dtype, device=self.device)
         Wst_bm = interp_rmatvec_bm(iw_c, eyeC)
         u = kron_matvec_fast((eyeC, *factors), Wst_bm.reshape(-1), precision="highest")
         C_bm = interp_matvec_bm_fast(self._plan, u.reshape(c, -1)) * self.mask[None, :]  # (c, n_loc)

@@ -18,7 +18,7 @@ import gp_grief_tpu_torch as gpt
 from gp_grief_tpu_torch.ops import interp as tint
 from gp_grief_tpu_torch.ops import interp_stencil as tst
 from gp_grief_tpu_torch.ops.cuda import _build, interp as k4, interp_wt, kron as tk, stencil as k5, wtw_stencil
-from gp_grief_tpu_torch.ops.kron_fast import kernel_route, kron_matvec_fast
+from gp_grief_tpu_torch.ops.kron_fast import batch_identity, kernel_route, kron_matvec_fast
 
 pytestmark = pytest.mark.cuda
 
@@ -213,24 +213,43 @@ def test_build_or_launch_failure_raises(cuda, monkeypatch):
 
 
 def test_leading_identity_batches_route_and_compute(cuda):
-    """SKI folds the batch in as a leading identity factor.  At 32^4 a 9x9
-    identity (1 + 8 probes) fails the slab gate (128 % 9) and the fused gate
-    (a 32-wide last axis), so the chain runs; an 8x8 identity (the SLQ
-    probes) takes K2 at the X3 preset.  K2 computes both correctly when
-    forced."""
+    """SKI folds the batch in as a leading ``batch_identity``.  At 32^4 the
+    1 + 8 probe rows (B = 9, which the copied slab gate refuses: 128 % 9),
+    the 8 SLQ rows and the 16- and 31-probe solves (17, 32 rows) take K2 at
+    the X3 preset, for a float32 and a bf16 vector alike, the identity
+    folded into the plan's rows: the planned
+    passes of 32^4 and none over the identity.  K2 agrees with its plain
+    version (and the float32 vector with float64); so does the rank-256
+    LOVE basis, (I_256, 32^4) "highest", which the gate also sends to K2."""
     g = torch.Generator().manual_seed(4)
     Qs = [torch.linalg.qr(torch.randn((32, 32), generator=g))[0].contiguous().to(cuda) for _ in range(4)]
-    for B, route in ((9, "chain"), (8, "slab")):
-        fs = (torch.eye(B, device=cuda), *Qs)
-        assert kernel_route(fs, 1, "BF16_BF16_F32_X3") == route
-        v = torch.randn((B * 32**4,), generator=g).to(cuda)
-        before = tk.kron_matvec_slab.launches
-        got = kron_matvec_fast(fs, v, precision="BF16_BF16_F32_X3")
-        assert (tk.kron_matvec_slab.launches > before) == (route == "slab")
-        forced = tk.kron_matvec_slab(fs, v, precision="highest")
-        exact = tk.kron_chain_ref([f.double() for f in fs], v.double()[:, None])[:, 0]
-        for out in (got, forced):
-            assert float(torch.linalg.norm(out.double() - exact) / torch.linalg.norm(exact)) < 1e-5
+    passes = len(tk._hopper_plan([32] * 4, [32] * 4, 1))
+    for B in (9, 8, 17, 32):
+        fs = (batch_identity(B, device=cuda), *Qs)
+        for vdtype in (torch.float32, torch.bfloat16):
+            assert kernel_route(fs, 1, "BF16_BF16_F32_X3", vector_dtype=vdtype) == "slab"
+            v = torch.randn((B * 32**4,), generator=g).to(cuda, vdtype)
+            before = tk.kron_matvec_slab.launches
+            got = kron_matvec_fast(fs, v, precision="BF16_BF16_F32_X3")
+            torch.cuda.synchronize()
+            assert tk.kron_matvec_slab.launches - before == passes
+            assert got.dtype == vdtype and got.shape == v.shape
+            fast = vdtype == torch.bfloat16
+            plain = tk.kron_chain_ref(fs, v.float()[:, None], fast=fast)[:, 0]
+            assert _rel(got.float(), plain) < (1e-2 if fast else 1e-5)
+            if not fast:
+                exact = tk.kron_chain_ref([f.double() for f in fs], v.double()[:, None])[:, 0]
+                assert _rel(got, exact) < 1e-5
+    # LOVE's basis at rank 256 (models/gp_ski.py:795), "highest": the gate's
+    # exact tile class sends it to K2 (8.6x the chain on an H100).
+    fs = (batch_identity(256, device=cuda), *Qs)
+    assert kernel_route(fs, 1, "highest") == "slab"
+    v = torch.randn((256 * 32**4,), generator=g).to(cuda)
+    before = tk.kron_matvec_slab.launches
+    got = kron_matvec_fast(fs, v, precision="highest")
+    torch.cuda.synchronize()
+    assert tk.kron_matvec_slab.launches - before == passes
+    assert _rel(got, tk.kron_chain_ref(fs, v[:, None])[:, 0]) < 1e-5
 
 
 @pytest.mark.parametrize("solver", ["data", "lattice"])

@@ -429,10 +429,20 @@ def test_wrapper_vjp_matches_jax(which):
 
 
 def test_wrappers_reject_what_they_do_not_take():
+    """K2 takes d >= 3 square factors; K3 every product the Hopper plan
+    takes ((4, 4) among them, which the copied Mosaic plan refuses), but not
+    a wide pass over more rows than csrc's int extents hold (2^31 rows of
+    one 80-point axis: zero-stride views, nothing allocated)."""
     fs = _t(_factors(np.random.default_rng(12), (4, 4)), torch.float32)
     with pytest.raises(ValueError, match="d >= 3 square"):
         tcuda.kron_matvec_slab(fs, torch.ones(16))
-    with pytest.raises(ValueError, match="feasible plan"):
-        tcuda.kron_matvec_fused(fs, torch.ones(16))
+    assert not tcuda.fused_schedule_applicable(fs, 1, feasible_only=True)
+    assert torch.equal(tcuda.kron_matvec_fused(fs, torch.ones(16)), tcuda.kron_chain_ref(fs, torch.ones(16, 1))[:, 0])
+    lead = torch.zeros(1, 1).expand(2**31, 2**31)
+    setattr(lead, tcuda._LEAD_MARK, True)
+    huge = (lead, torch.zeros(80, 80))
+    assert not tcuda.plan_takes(huge, 1)
+    with pytest.raises(ValueError, match="does not take"):
+        tcuda.kron_matvec_fused(huge, torch.zeros(1).expand(2**31 * 80))
     with pytest.raises(ValueError, match="rows"):
         tcuda.kron_matvec_fused(fs, torch.ones(15))

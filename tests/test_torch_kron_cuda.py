@@ -154,6 +154,33 @@ def test_slab_fast_grade_on_the_tensor_cores(cuda, sizes, B, vdtype, mid):
     assert _rel(got, exact) < FAST_VS_EXACT
 
 
+# A bf16 vector takes the fast grade, whose every pass rounds its operand to
+# bf16: bf16 storage between K2's passes (what kron_matvec_fast asks for
+# there) gives the bits of float32 storage.  (lead, sizes): the lattice dual's
+# mixed16 solves at 8 and 16 probes, the grid's mixed16 state, a case whose
+# passes run the FP32 tile member.
+BF16_MID_CASES = [(9, (32,) * 4), (17, (32,) * 4), (0, (32,) * 5), (0, (5, 12, 9, 20, 7)), (3, (4, 16, 8, 16, 8))]
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("lead,sizes", BF16_MID_CASES)
+def test_slab_bf16_vector_mid_storage_keeps_the_bits(cuda, lead, sizes, precision):
+    fs, v = _operands(sizes, sizes, 1, cuda, seed=7)
+    if lead:
+        fs = [tk.batch_identity(lead, device=cuda), *fs]
+        v = torch.randn((lead * v.shape[0], 1), generator=torch.Generator(device=cuda).manual_seed(7), device=cuda)
+    vb = v.to(torch.bfloat16)
+    before = tk.kron_matvec_slab.launches
+    f32_mid = tk.kron_matvec_slab(fs, vb, precision=precision)
+    bf16_mid = tk.kron_matvec_slab(fs, vb, precision=precision, mid_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    core = tuple(sizes)
+    assert tk.kron_matvec_slab.launches - before == 2 * len(tk._passes(core, core, 1, max(lead, 1), None, True))
+    assert bf16_mid.dtype == torch.bfloat16 and torch.equal(f32_mid, bf16_mid)
+    routed = kron_matvec_fast(fs, vb, precision="BF16_BF16_F32_X3")  # the lattice dual's mixed16 call
+    assert torch.equal(routed, bf16_mid)
+
+
 # sha256 of the exact grade's (X3: the SKI lattice's Q/Qᵀ at B = 8) float32
 # output bytes from the FP32 tile member as it stood before the tensor-core
 # member was added, on an H100: the exact grade keeps those bits.

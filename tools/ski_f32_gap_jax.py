@@ -18,7 +18,8 @@ For the lattice solver the line also carries ``terms``: the NLML's pieces in
 each package and dtype, ``NLML = ½(quad + (n−M)·log σ² + ld_MK + ld_white +
 n·log 2π)`` with ``quad = (yᵀy − 2ṽᵀγ + γᵀW̃γ)/σ²``, and ``port_f32_swapped``:
 the port's float32 NLML with yᵀy summed in float32 in index order, as the JAX
-package's float32 ``jnp.dot`` sums on the CPU; ``lanczos`` compares the SLQ
+package's float32 ``jnp.dot`` sums on the CPU (the port accumulates quad's
+three sums in float64: ``models.gp_ski._dual_quad``); ``lanczos`` compares the SLQ
 probes' Lanczos coefficients between the packages and dtypes.  The JAX package's pieces are
 evaluated eagerly, op by op, with the model's own methods (its jitted loss
 fuses them, which moves its float32 value by a few 1e-6 relative).
@@ -41,6 +42,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+from gp_grief_tpu_torch.models.gp_ski import _dual_quad  # noqa: E402
 
 
 def gaps(a, b) -> dict:
@@ -81,9 +83,9 @@ def port_terms(tm, *, sequential_yty: bool = False, probe_lanczos: bool = False)
             if sequential_yty:
                 yy = torch.tensor(sequential_dot(tm.y.cpu().numpy(), tm.y.cpu().numpy()), dtype=tm.dtype)
             else:
-                yy = torch.dot(tm.y, tm.y)
+                yy = torch.dot(tm.y.double(), tm.y.double())
             vg, gwg = torch.dot(vt[0], gam), torch.dot(gam, white(gam[None, :])[0])
-            quad = (yy - 2.0 * vg + gwg) / sigma2
+            quad = _dual_quad(yy.double(), vt[0], gam, white, sigma2)
             ld_white = tlz.slq_logdet(white, M, generator=None, num_probes=o["num_probes"],
                                       lanczos_iters=o["lanczos_iters"], dtype=tm.dtype, device=tm.device, layout="bm")
             ld = (n - M) * tm.log_noise + ld_MK + ld_white

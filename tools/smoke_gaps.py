@@ -1,6 +1,6 @@
 """Compare the non-timing numbers of two ``chip_smoke.py`` logs.
 
-Usage: python3 tools/smoke_gaps.py PARENT.log CHANGE.log
+Usage: python3 tools/smoke_gaps.py PARENT.log CHANGE.log [--all | --table]
 
 Each JSON line of a log is keyed by its phase and its other top-level
 string fields (config, kernel, shape, precision, ...) and its order among
@@ -11,8 +11,10 @@ a profiler trace or a PyTorch library call's own error (``SKIP``: none of
 them a result of the port's arithmetic that repeats run to run): what
 remains are the gaps, errors, likelihoods, predictions, iteration and
 launch counts.  Prints one JSON line: how many values were compared, how
-many differ (with the first 50), and the lines found in one log only.
-Exit code 0 when no compared value differs.
+many differ (with the first 50, or with ``--all`` every one), and the lines
+found in one log only (``--table``: instead, every differing value as
+Markdown, one row per log line, ``path parent → change`` in full).  Exit
+code 0 when no compared value differs.
 """
 
 from __future__ import annotations
@@ -59,7 +61,7 @@ def _lines(path: str) -> dict:
     return out
 
 
-def compare(parent: str, change: str) -> dict:
+def compare(parent: str, change: str, shown: int = 50) -> dict:
     a, b = _lines(parent), _lines(change)
     compared, differ = 0, []
     for key in a.keys() & b.keys():
@@ -70,15 +72,27 @@ def compare(parent: str, change: str) -> dict:
             compared += 1
             if va[path] != x:
                 differ.append({"line": dict(key[0]), "path": "/".join(path), "parent": va[path], "change": x})
-    return {"compared": compared, "differ": len(differ), "first_differences": differ[:50],
+    return {"compared": compared, "differ": len(differ), "first_differences": differ[:shown],
             "only_parent": [dict(k[0]) for k in a.keys() - b.keys()],
             "only_change": [dict(k[0]) for k in b.keys() - a.keys()]}
 
 
+def table(result: dict) -> str:
+    """The differing values of :func:`compare` (``shown=None``) as Markdown
+    rows: the log line, then each value's path, parent and change."""
+    rows = {}
+    for d in result["first_differences"]:
+        line = ", ".join(f"{k}={v}" for k, v in d["line"].items() if k != "keys") or d["line"].get("keys", "")
+        rows.setdefault(line, []).append(f"{d['path']} {d['parent']!r} → {d['change']!r}")
+    return "\n".join(f"| {line} | {'; '.join(vals)} |" for line, vals in sorted(rows.items()))
+
+
 if __name__ == "__main__":
-    if len(sys.argv) != 3:
+    flags = {"--all", "--table"}
+    args = [a for a in sys.argv[1:] if a not in flags]
+    if len(args) != 2:
         print(__doc__)
         sys.exit(2)
-    result = compare(sys.argv[1], sys.argv[2])
-    print(json.dumps(result))
+    result = compare(*args, shown=None if flags & set(sys.argv[1:]) else 50)
+    print(table(result) if "--table" in sys.argv[1:] else json.dumps(result))
     sys.exit(0 if result["differ"] == 0 else 1)
