@@ -146,6 +146,17 @@ non-zero without printing the final line:
              limits of float64 (REL_ERR_MAX), route "slab", K2's launches
              and exact-tile launches grown; its JSON line printed with the
              card.
+17. demos  — the seven user demos (gp_grief_tpu_torch.examples, the port of
+             examples/): (a) each at its card size (DEMO_CARD: the JAX
+             script's accelerator recipe; demo_kron_grid's mesh and
+             demo_sharded at world 2 on gloo, both ranks on cuda:0), one line
+             each with its printed values, wall, peak memory, the card's idle
+             share (NVML) and its K1-K5 launches, checked: the likelihood up
+             after training, predictions finite, variances >= 0,
+             demo_ski_1m's own assertion, each rmse within DEMO_RMSE_MAX;
+             (b) each demo's CPU recipe at DEMO_CPU_ARGS on the card, with the
+             probes of tools/demos_reference_jax.py, held to JAX_DEMOS at
+             DEMO_RTOL.
 
 Then the ``nvidia-smi`` name/power-limit line, one ``{"kernels": [...]}``
 line (K1 launches from phases 4-5 (14a among them) and configs,
@@ -153,7 +164,8 @@ K2/K3 from phase 7 (14b among them; K2's ``batched_applies`` from phases 9
 and 12, each entry's ``route_table_rows`` from phase 6), K4/K5 from
 phase 9's float32 runs, K6-K8 from phase 10; ``training_launches`` from
 phases 11-12; phase 13 launches none; ``parallel_launches``, the ranks' sum
-over phase 15; K2's ``bench_launches``, the bench process's over phase 16)
+over phase 15; K2's ``bench_launches``, the bench process's over phase 16;
+``demo_launches``, phase 17 (a)'s, the demos' ranks included)
 and, last, ``{"ok": true, "device": {...}}``.  This script imports no JAX.
 """
 
@@ -2977,6 +2989,286 @@ def phase_bench(card: str) -> dict:
     return rec
 
 
+# -- Phase 17: the user demos (gp_grief_tpu_torch.examples) -------------------------
+
+# Each demo's CPU recipe at the sizes the CPU tests run (the JAX scripts'
+# CPU branch; float64 where the script fixes float32, so that parity is
+# rounding): tools/demos_reference_jax.py's JAX values at these sizes are
+# JAX_DEMOS, and part (b) of phase 17 runs the same recipes on the card.
+DEMO_CPU_ARGS = {
+    "demo_1d_regression": dict(n=300),
+    "demo_grief_highdim": dict(d=8, n=300, p=40, ard_iters=5),
+    "demo_kron_grid": {},
+    "demo_sharded": dict(dtype="float64"),
+    "demo_ski_mixed": dict(n=600, mbar=10),
+    "demo_exact_matrixfree": dict(n=1000, dtype="float64"),
+    "demo_ski_1m": dict(n=10000, ms=8, steps=3, n_test=64, dtype="float64"),
+}
+# The JAX demos at DEMO_CPU_ARGS, float64, with the probes and conventions of
+# tools/demos_reference_jax.py (its ``patched``), jax 0.9.0 on the CPU:
+#   JAX_PLATFORMS=cpu python tools/demos_reference_jax.py
+# (every value but the wall times; tests/test_torch_demos_*.py hold this
+# record to the live tool at 1e-12).
+JAX_DEMOS = {
+    'demo_1d_regression': {
+        'grief_ll': 248.62809875932342,
+        'grief_rmse': 0.012892340926163467,
+        'grief_iters': 100,
+        'exact_ll': 247.30950757395755,
+        'exact_rmse': 0.009955852543044494,
+        'exact_iters': 25,
+        'mean_gap': 0.006597584072264116,
+    },
+    'demo_grief_highdim': {
+        'd': 8,
+        'grid_pts': 10,
+        'log10_virtual': 8.0,
+        'll_init': -210.88935220997604,
+        'll_ard': -23.84114787672314,
+        'ard_iters': 5,
+        'll_polish': 256.86594563447505,
+        'polish_iters': 150,
+        'relevant': [0, 1, 4, 6, 7],
+        'lengthscales': [1.1952157187283081, 1.3275012108846154, 1.925605809983833, 1.9253829672829843, 1.9068287886800532, 1.9247742235154044, 1.919340839364685, 1.9237968908373617],
+        'rmse': 0.08686746660913601,
+    },
+    'demo_kron_grid': {
+        'm': 64000,
+        'nlml': 12978.954864429455,
+        'nlml_trained': 100452.25128886043,
+        'rmse': 0.0017051251955296008,
+        'var_min': 2.3998390443757955e-06,
+        'var_max': 5.658938379893286e-06,
+        'grouped_dims': [[0], [1, 2]],
+        'grouped_nlml': -729.816557404626,
+        'grouped_mean': [0.11849374702333484, 0.06145491374394469, -0.22411391806719366],
+        'mesh': {'data': 4, 'model': 2},
+        'mesh_nlml': 12978.954864429528,
+    },
+    'demo_sharded': {
+        'll_init': -592.613595851144,
+        'll': 6235.492286126071,
+        'iters': 100,
+        'rmse': 0.0029207741634206617,
+        'ski_ll': -735.5348904329671,
+        'ski_mean': [0.06650784762263232, -0.49509062567824597, 0.5966905497897351, 0.266058273764361, -0.3796098344674296, 1.0949435372538752, 0.21063825510561557, 0.33332926163491944, 0.2763327962519989, -0.46006738972629957, 1.0217896642714621, -0.03345396371229329, 0.1310036702208993, 0.27134583660764783, 1.0886941739272695, 0.5691096252486627, 0.10291534295729587, 0.23861959835655588, 0.058522480594686156, -0.4791924342348144, 0.2957554863997336, 0.3575486766093279, 0.8560445512661191, -0.3976462099203813, 0.15167674072402193, -0.14753534515939498, 0.39071141816574173, 0.8048263602687288, 0.16541695861791555, 1.0824870408605052, 0.20809356104173762, 0.014681937171848403, 1.0412109833255294, 1.129212839363478, 0.5228891726564997, 0.3661809017340787, -0.6421734122302296, 0.7065991728562451, 0.7596046972264384, 0.9218793396136903, 1.1077429676669674, 0.7134666488195226, 0.0780934721474265, 0.9168432679838965, 0.30377632099085433, 0.643585105473664, 0.7822264702615923, 0.5049971890172621, -0.057410788621762604, 0.2875176658311958, 0.31218528571960236, 0.5385987983443197, -0.013071862430993515, 0.1773753777632727, 0.5430079718853349, 0.04149289424527088, 0.26664499042767126, -0.0879380029244202, -0.2528188873754782, 0.2883065404416663, 0.5030471667622799, 0.540999406080353, 0.03294433854511022, 0.580571044768759, -0.08984902733055063, 0.30571467532732927, 0.17638772491748814, 0.2630766776445203, -0.2512154385623169, -0.10804359733522718, 0.4900926365582285, 0.36153073390667834, 0.23850257360460242, 0.5767403446311266, -0.3301576475517703, -0.1879596896257505, 0.6894872418233329, 1.1670763113926181, 0.5481257478557071, 0.4651311565668695, 0.6701382395799751, 0.5449592404682508, 0.5284553366697705, 0.36011839109441773, 0.46957338960216843, 0.2541798593638838, -0.030851366871046376, 0.3116754593991975, -0.09195091621665855, 0.2674885649935098, 0.9183497846573365, 0.49947778243882623, -0.28036877668221316, 0.5028591789637846, 0.4631812253727187, 0.7337911304941249, 0.22431852622194648, 0.11733945118606692, 0.11693641187853417, 0.5022971108265646],
+        'ski_var': [0.0006487232683767274, 0.000756568585640216, 0.0007209427843536398, 0.0007468527330855013, 0.000778493936868907, 0.0006829418454724623, 0.0006573767726427704, 0.0005814501019756335, 0.0005918038269840942, 0.0007665287651226205, 0.000648906257072368, 0.0007076093037275966, 0.0006148157002608956, 0.0007313841526777054, 0.0007529597008975042, 0.0006400298503480562, 0.0006214013796185247, 0.0005894133995569817, 0.0005490189528882805, 0.0007127989435434801, 0.000587794243331552, 0.0006458662785255864, 0.0008700411386560747, 0.0006905838295332423, 0.0006472617934089042, 0.0005648502691305568, 0.0005800404996721964, 0.0006571826407069103, 0.0006454468513923395, 0.0008117025009192202, 0.000667451182506329, 0.0007545903483389127, 0.0006507443645769051, 0.0007629900741362716, 0.0006406698795455856, 0.0005878077560735884, 0.0007388611095292541, 0.0005829531752312711, 0.0008182049236774569, 0.0007053804170449318, 0.000694178220824182, 0.0007984683459730801, 0.0005641321159288726, 0.0006285961769070258, 0.0009147056742574433, 0.0006213242953591047, 0.0008064586426955733, 0.0007850568331856378, 0.0006647166912755464, 0.0005591335275438869, 0.0005583375612668862, 0.0005659852140867949, 0.0005625357426612965, 0.0006576372753299697, 0.0006194974527247155, 0.0006911292409154113, 0.0007644448386325831, 0.0006083500702046551, 0.0005770108421846443, 0.0006688195797680541, 0.0006140855322717131, 0.0006645403223209945, 0.0006824474651250245, 0.0007877914898625216, 0.0005414032366319876, 0.0005758587914499458, 0.0006952924061242038, 0.000617883082581705, 0.0005958725870368609, 0.0007319000545042975, 0.0007019276152009368, 0.0006333526370285725, 0.000582864717843079, 0.0007598695291682889, 0.0006210003826764288, 0.0007505460926822138, 0.0006527984922957142, 0.0007050535432236993, 0.0006378982777136555, 0.0005649292104653592, 0.0005546482322743573, 0.0006258749579910461, 0.0006257513999515796, 0.0006542146727380738, 0.0006649761053655334, 0.0006346534065558851, 0.0006944119477423349, 0.0007509685509217157, 0.0005702865245398314, 0.0005623483511327798, 0.0005806602462264943, 0.0008730858041170464, 0.0006123428612073711, 0.0006321229941051998, 0.0006589664833511755, 0.0006415589805714994, 0.000573039783527296, 0.0006008104130154068, 0.0006756529093019381, 0.000630828029521191],
+    },
+    'demo_ski_mixed': {
+        'exact': {'ll': 372.5036183539429, 'rmse': 0.03541341993110755},
+        'mixed': {'ll': 372.50361835394244, 'rmse': 0.03541341993111831},
+    },
+    'demo_exact_matrixfree': {
+        'n': 1000,
+        'll': 479.68848478066684,
+        'rmse': 0.008345859283155267,
+    },
+    'demo_ski_1m': {
+        'n': 10000,
+        'ms': 8,
+        'd': 4,
+        'steps': 3,
+        'losses': [-2766.240507592278, -3102.245637121716, -3420.766877065078],
+        'nlml': -5754.693049916155,
+        'n_test': 64,
+        'rmse': 0.009553169401630186,
+        'var_min': 0.00040605654931358444,
+        'var_max': 0.002562391689998996,
+        'coverage': 1.0,
+        'noise_var': 0.04303491323179288,
+    },
+}
+# Limits against JAX_DEMOS (the CPU tests' and part (b)'s), relative to the
+# largest entry of a list.  Adam and closed-form float64 values at 1e-9
+# (CONFIG_RTOL's); demo_1d_regression trains by L-BFGS (two stop points), so
+# only its converged NLMLs are held.  demo_kron_grid's trained values:
+# Adam moves the three kernel variances by about the learning rate on the
+# sign of a near-zero gradient, so rounding sets the trajectory (the port's
+# three stay within 4e-12 of each other, the JAX package's drift 1.5e-3
+# apart): about three times
+# the gaps measured on the CPU (NLML 1.0e-7, rmse 1.7e-4, variances 3.3e-4 / 2.9e-4).
+# demo_ski_1m trains on bf16 solves (train_mixed16), which the two packages
+# round apart: about three times the largest of the CPU's gaps over 1-8
+# threads (surrogates 1.4e-4, NLML 9.0e-7, rmse 4.4e-6, variances 9.2e-4 /
+# 1.5e-4, noise 1.7e-7).
+# Integers and index lists must be equal (DEMO_EQUAL).
+DEMO_RTOL = {
+    "demo_1d_regression": {"grief_ll": 1e-9, "exact_ll": 1e-9},
+    "demo_grief_highdim": {k: 1e-9 for k in ("ll_init", "ll_ard", "ll_polish", "lengthscales", "rmse")},
+    "demo_kron_grid": {"nlml": 1e-9, "grouped_nlml": 1e-9, "grouped_mean": 1e-9, "mesh_nlml": 1e-9,
+                       "nlml_trained": 3e-7, "rmse": 5e-4, "var_min": 1e-3, "var_max": 1e-3},
+    "demo_sharded": {k: 1e-9 for k in ("ll_init", "ll", "rmse", "ski_ll", "ski_mean", "ski_var")},
+    "demo_ski_mixed": {f"{p}.{k}": 1e-9 for p in ("exact", "mixed") for k in ("ll", "rmse")},
+    "demo_exact_matrixfree": {"ll": 1e-9, "rmse": 1e-9},
+    "demo_ski_1m": {"losses": 5e-4, "nlml": 3e-6, "rmse": 1.5e-5, "var_min": 3e-3, "var_max": 5e-4,
+                    "noise_var": 5e-7, "coverage": 0.0},
+}
+DEMO_EQUAL = {
+    "demo_grief_highdim": ("d", "grid_pts", "ard_iters", "polish_iters", "relevant"),
+    "demo_kron_grid": ("m", "grouped_dims"),
+    "demo_sharded": ("iters",),
+    "demo_ski_1m": ("n", "ms", "steps", "n_test"),
+}
+
+
+def demo_value(values: dict, key: str):
+    """``values[key]``, a dotted key reaching into nested dicts."""
+    for part in key.split("."):
+        values = values[part]
+    return values
+
+
+def demo_gaps(name: str, got: dict, want: dict) -> dict:
+    """Each DEMO_RTOL value's gap, relative to the largest entry of ``want``'s,
+    and whether every DEMO_EQUAL value is equal."""
+    gaps = {}
+    for key in DEMO_RTOL[name]:
+        g, w = (np.asarray(demo_value(v, key), dtype=np.float64) for v in (got, want))
+        gaps[key] = float(np.max(np.abs(g - w)) / max(float(np.max(np.abs(w))), 1e-300))
+    equal = all(demo_value(got, k) == demo_value(want, k) for k in DEMO_EQUAL.get(name, ()))
+    return {"gaps": gaps, "equal": equal}
+
+
+# The JAX package's sharded models span every device of the reference run
+# (8 virtual CPU devices): demo_sharded's 4000 rows in blocks of 500.
+DEMO_SHARD_BLOCK = 500
+
+
+def demo_probe(shape) -> np.ndarray:
+    """The Rademacher probe matrix of one ``shape`` (float64, from NumPy),
+    whatever the draw: tools/demos_reference_jax.py hands it to every JAX
+    draw of that shape (traced once inside a compiled program), so the port
+    is handed it at every draw too (:class:`DemoProbes`)."""
+    shape = tuple(int(s) for s in shape)
+    rng = np.random.default_rng([20261018, *shape])
+    return (2.0 * rng.integers(0, 2, size=shape) - 1.0).astype(np.float64)
+
+
+class DemoProbes:
+    """:func:`demo_probe` in place of the port's ``ops.lanczos.rademacher``.
+    With ``block`` (a rank of a sharded model): a draw whose width is a
+    multiple of ``block`` is the ``(rows, block)`` matrix tiled across it,
+    as the JAX package's shards, each drawing its block alike, make up the
+    whole."""
+
+    def __init__(self, block=None):
+        self.block = block
+
+    def __call__(self, shape, *, dtype, device, generator):
+        import torch
+
+        rows, cols = (int(s) for s in shape)
+        if self.block and cols != self.block and cols % self.block == 0:
+            z = np.tile(demo_probe((rows, self.block)), (1, cols // self.block))
+        else:
+            z = demo_probe((rows, cols))
+        return torch.as_tensor(z, dtype=dtype, device=device)
+
+    def install(self) -> None:
+        """Patch this process's draw (a spawned rank's ``rank_init``)."""
+        import gp_grief_tpu_torch.ops.lanczos as tlz
+
+        tlz.rademacher = self
+
+
+def with_demo_probes(fn, block=None):
+    """Run ``fn()`` with the port's probe draw replaced by :class:`DemoProbes`."""
+    import gp_grief_tpu_torch.ops.lanczos as tlz
+
+    draw, tlz.rademacher = tlz.rademacher, DemoProbes(block)
+    try:
+        return fn()
+    finally:
+        tlz.rademacher = draw
+
+
+# Part (a): each demo's card recipe at its default size (the JAX script's
+# accelerator branch), in the order of gp_grief_tpu_torch/examples/__init__.py.
+DEMO_CARD = {"demo_1d_regression": {}, "demo_grief_highdim": {}, "demo_kron_grid": dict(world=2),
+             "demo_sharded": dict(world=2), "demo_ski_mixed": {}, "demo_exact_matrixfree": {}, "demo_ski_1m": {}}
+# Each card run's rmse at most about three times its first measured value
+# (PERF.md §2; on an NVIDIA H100 80GB HBM3 at 700.00 W: 0.011436 / 0.008772,
+# 0.07787, 0.0016638, 0.0029213, 0.0052455 / 0.0052467, 0.0012151, 0.00087947).
+DEMO_RMSE_MAX = {"demo_1d_regression": {"grief_rmse": 0.035, "exact_rmse": 0.027},
+                 "demo_grief_highdim": {"rmse": 0.24}, "demo_kron_grid": {"rmse": 0.005},
+                 "demo_sharded": {"rmse": 0.009}, "demo_ski_mixed": {"exact.rmse": 0.016, "mixed.rmse": 0.016},
+                 "demo_exact_matrixfree": {"rmse": 0.0037}, "demo_ski_1m": {"rmse": 0.0027}}
+def demo_trained(name: str, v: dict) -> dict:
+    """``(before, after)`` log-likelihoods of each model a demo trains."""
+    if name == "demo_ski_1m":  # the script prints the NLML after training
+        return {"lattice": (v["ll_init"], -v["nlml"])}
+    keys = {"demo_1d_regression": {"grief": ("grief_ll_init", "grief_ll"), "exact": ("exact_ll_init", "exact_ll")},
+            "demo_grief_highdim": {"ard": ("ll_init", "ll_ard"), "polish": ("ll_ard", "ll_polish")},
+            "demo_kron_grid": {"grid": ("nlml", "nlml_trained")}, "demo_sharded": {"grief": ("ll_init", "ll")},
+            "demo_ski_mixed": {p: (f"{p}.ll_init", f"{p}.ll") for p in ("exact", "mixed")}}.get(name, {})
+    return {model: (demo_value(v, b), demo_value(v, a)) for model, (b, a) in keys.items()}
+
+
+def demo_checks(name: str, v: dict) -> None:
+    """Part (a)'s checks of one demo's values (any failure raises)."""
+    for model, (before, after) in demo_trained(name, v).items():
+        check(after > before, f"{name}: {model}'s log-likelihood {after} not above its start {before}")
+    runs = [v[p] for p in ("exact", "mixed")] if name == "demo_ski_mixed" else [v]
+    for r in runs:
+        check(r.get("mean_finite", True), f"{name}: a prediction is not finite")
+        for key in ("var_min", "grouped_var_min", "grief_var_min", "exact_var_min"):
+            if key in r:
+                check(r[key] >= 0, f"{name}: {key} {r[key]} < 0")
+    if name == "demo_sharded":
+        check(min(v["ski_var"]) >= 0, f"{name}: a SKI variance < 0")
+        check(len(set(v["ski_ll_ranks"])) == 1, f"{name}: the ranks' SKI NLMLs differ {v['ski_ll_ranks']}")
+    if name == "demo_kron_grid":
+        check(len(set(v["mesh_nlml_ranks"])) == 1, f"{name}: the ranks' CG NLMLs differ {v['mesh_nlml_ranks']}")
+    if name == "demo_ski_1m":  # the JAX script's own assertion (demo_ski_1m.py:95)
+        check(v["rmse"] < 0.05 and v["var_min"] >= 0 and v["var_max"] > 0,
+              f"{name}: rmse {v['rmse']}, variances [{v['var_min']}, {v['var_max']}]")
+    for key, limit in DEMO_RMSE_MAX[name].items():
+        value = demo_value(v, key)
+        check(np.isfinite(value) and value <= limit, f"{name}: {key} {value} over {limit}")
+
+
+def _demo_run(name: str, **kw) -> dict:
+    import importlib
+
+    return importlib.import_module(f"gp_grief_tpu_torch.examples.{name}").run(**kw)
+
+
+def phase_demos(card: str) -> dict:
+    """Phase 17: the user demos through ``gp_grief_tpu_torch.examples`` on the
+    card.  (a) Each demo's card recipe at its default size (DEMO_CARD), one
+    line each: its printed values, wall, peak memory (the parent's; the
+    ranks' beside it), the card's busy and idle share over the run (NVML),
+    and its K1-K5 launches (the ranks' summed in); checked by
+    :func:`demo_checks`.  (b) Each demo's CPU recipe at DEMO_CPU_ARGS on
+    the card, with :class:`DemoProbes`, held to JAX_DEMOS at DEMO_RTOL.
+    Returns part (a)'s launches, summed over the demos."""
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5")}
+    for name, kw in DEMO_CARD.items():
+        v, stats = run_measured(lambda: _demo_run(name, device=DEVICE, **kw))
+        for k in total:
+            total[k] += v["launches"][k]
+        emit({"phase": "demos", "part": "card", "demo": name, **stats, "values": v, "card": card})
+        demo_checks(name, v)
+    t_card = time.perf_counter() - t_phase
+    for name, sizes in DEMO_CPU_ARGS.items():
+        kw = dict(sizes, device=DEVICE, recipe="cpu") if name != "demo_sharded" else dict(sizes, device=DEVICE)
+        block = DEMO_SHARD_BLOCK if name == "demo_sharded" else None
+        if name in ("demo_kron_grid", "demo_sharded"):
+            kw["rank_init"] = DemoProbes(block).install
+        t0 = time.perf_counter()
+        v = with_demo_probes(lambda: _demo_run(name, **kw), block)
+        res = demo_gaps(name, v, JAX_DEMOS[name])
+        emit({"phase": "demos", "part": "jax", "demo": name, "s": time.perf_counter() - t0, **res,
+              "limits": DEMO_RTOL[name], "values": v, "card": card})
+        check(res["equal"], f"{name}: {DEMO_EQUAL.get(name)} differ from JAX_DEMOS")
+        for key, gap in res["gaps"].items():
+            check(gap <= DEMO_RTOL[name][key], f"{name}: {key} {gap:.3e} from JAX_DEMOS (limit {DEMO_RTOL[name][key]})")
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "demos", "part": "total", "s": seconds, "card_s": t_card, "launches": total, "card": card})
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -3129,6 +3421,15 @@ def main() -> int:
     # Phase 16: the headline benchmark, in a process of its own; its K2
     # launches are that process's.
     entries[1]["bench_launches"] = phase_bench(card)["detail"]["launches"]
+
+    # Phase 17: the user demos; each demo counts its launches from its start
+    # (its ranks' summed in), and ``demo_launches`` is part (a)'s sum.
+    reset()
+    demo_launches = phase_demos(card)
+    for key, count in demo_launches.items():
+        check(count > 0, f"the demos never launched {key}")
+    for entry, key in zip(entries, ("K1", "K2", "K3", "K4", "K5", None, None, None, None)):
+        entry["demo_launches"] = demo_launches[key] if key else 0
 
     print(card, flush=True)
     emit({"kernels": entries})
