@@ -39,8 +39,16 @@ from gp_grief_tpu_torch.ops.fused import fused_cg_slq
 from gp_grief_tpu_torch.ops.precond import lowrank_sqrt_ops_from_factor, pivoted_cholesky, pivoted_cholesky_matfree
 from gp_grief_tpu_torch.ops.solve import cholesky, logdet_from_chol
 from gp_grief_tpu_torch.optimize import FitResult
+from gp_grief_tpu_torch.utils import profiling as _prof
 
 __all__ = ["GPRegression", "gp_nlml", "gp_nlml_iterative", "make_gram_matvec"]
+
+_gram_span = _prof.site("gp_grief.gram", "B", "n", "blocks")
+_slab_span = _prof.site("gp_grief.gram.slab")
+_contract_span = _prof.site("gp_grief.gram.contract")
+_step_span = _prof.site("gp_grief.model.step", "step", entry=True)
+_step_solve_span = _prof.site("gp_grief.model.step.solve")
+_step_grad_span = _prof.site("gp_grief.model.step.grad")
 
 KernelLike = Union[Stationary, Sequence[Stationary]]
 
@@ -143,20 +151,24 @@ def make_gram_matvec(kernels: KernelLike, x: torch.Tensor, sigma2, *, chunk: int
     blocks = (torch.cat([x, x.new_zeros((pad, dim))]) if pad else x).split(chunk)
     params = _kernel_params(kernels)
 
-    def block(vv, xblk):
-        return _contract(vv, _cov_any(kernels, xblk, x), fast)
+    def block(vv, xblk, slab=_cov_any):
+        with _slab_span():
+            K = slab(kernels, xblk, x)
+        with _contract_span():
+            return _contract(vv, K, fast)
 
     def mv(vv: torch.Tensor) -> torch.Tensor:
-        od = torch.promote_types(x.dtype, vv.dtype)
-        sig = torch.as_tensor(sigma2, device=x.device)
-        live = torch.is_grad_enabled() and (vv.requires_grad or sig.requires_grad
-                                             or any(p.requires_grad for p in params))
-        if live:
-            outs = [checkpoint(block, vv, xb, use_reentrant=False, preserve_rng_state=False) for xb in blocks]
-        else:
-            with torch.no_grad():
-                outs = [_contract(vv, _solver_slab(kernels, xb, x), fast) for xb in blocks]
-        return torch.cat(outs, dim=1)[:, :n].to(od) + sig.to(od) * vv.to(od)
+        with _gram_span(int(vv.shape[0]), n, len(blocks)):
+            od = torch.promote_types(x.dtype, vv.dtype)
+            sig = torch.as_tensor(sigma2, device=x.device)
+            live = torch.is_grad_enabled() and (vv.requires_grad or sig.requires_grad
+                                                 or any(p.requires_grad for p in params))
+            if live:
+                outs = [checkpoint(block, vv, xb, use_reentrant=False, preserve_rng_state=False) for xb in blocks]
+            else:
+                with torch.no_grad():
+                    outs = [block(vv, xb, _solver_slab) for xb in blocks]
+            return torch.cat(outs, dim=1)[:, :n].to(od) + sig.to(od) * vv.to(od)
 
     return mv
 
@@ -505,8 +517,9 @@ class GPRegression(BaseModel):
         zero gradient.  ``losses`` trace the data-fit surrogate ``½ yᵀα +
         (n/2) log 2π`` (the SLQ value is never computed in a step);
         ``callback(step, surrogate, info)`` gets ``info`` with the step's
-        ``solve_s``, ``grad_s`` (host seconds, each ending in a read of the
-        device) and ``cg_iterations``.  Raises ``ValueError`` unless the
+        ``cg_iterations``.  Under a profiler each step is the span
+        ``gp_grief.model.step`` with its ``.solve`` and ``.grad``
+        (:mod:`~gp_grief_tpu_torch.utils.profiling`).  Raises ``ValueError`` unless the
         model is iterative and matrix-free."""
         o = self._options(overrides)
         chunk = int(o["matvec_chunk"])
@@ -530,44 +543,46 @@ class GPRegression(BaseModel):
         losses, gnorms = [], []
         t0 = time.perf_counter()
         for step in range(int(max_iters)):
-            t_s = time.perf_counter()
-            with torch.no_grad():
-                sigma2 = torch.exp(self.log_noise)
-                mv = self._gram_op(chunk)
-                if r > 0:
-                    _, M_inv_sqrt, _ = _whitener(self.kernel, self.x, sigma2, r)
-                    solw, iters = cg_segments(_whiten(mv, M_inv_sqrt, dtype), M_inv_sqrt(rhs0),
-                                              tol=float(o["cg_tol"]), max_iters=int(o["cg_iters"]),
-                                              segment_iters=int(cg_segment_iters))
-                    sol = M_inv_sqrt(solw)
-                else:
-                    sol, iters = cg_segments(mv, rhs0, tol=float(o["cg_tol"]), max_iters=int(o["cg_iters"]),
-                                             segment_iters=int(cg_segment_iters))
-                alpha, S = sol[0], sol[1:]
-                fit_sur = float(0.5 * (torch.dot(self.y, alpha) + n * math.log(2.0 * math.pi)))
-            t_solve = time.perf_counter() - t_s
-            t_s = time.perf_counter()
-            opt.zero_grad(set_to_none=True)
-            # One operator per piece: each backward frees its graph, σ²'s included.
-            (-0.5 * torch.dot(alpha, self._gram_op(chunk)(alpha[None, :])[0])).backward()
-            off = 0
-            for c in sizes:
-                (0.5 * torch.sum(S[off : off + c] * self._gram_op(chunk)(Z[off : off + c])) / R).backward()
-                off += c
-            for p in frozen:
-                if p.grad is not None:
-                    p.grad.zero_()
-            gn = float(torch.sqrt(sum(p.grad.double().pow(2).sum() for p in params if p.grad is not None)))
-            t_grad = time.perf_counter() - t_s
-            opt.step()
+            with _step_span(step):
+                with torch.no_grad(), _step_solve_span():
+                    sigma2 = torch.exp(self.log_noise)
+                    mv = self._gram_op(chunk)
+                    if r > 0:
+                        _, M_inv_sqrt, _ = _whitener(self.kernel, self.x, sigma2, r)
+                        solw, iters = cg_segments(_whiten(mv, M_inv_sqrt, dtype), M_inv_sqrt(rhs0),
+                                                  tol=float(o["cg_tol"]), max_iters=int(o["cg_iters"]),
+                                                  segment_iters=int(cg_segment_iters))
+                        sol = M_inv_sqrt(solw)
+                    else:
+                        sol, iters = cg_segments(mv, rhs0, tol=float(o["cg_tol"]), max_iters=int(o["cg_iters"]),
+                                                 segment_iters=int(cg_segment_iters))
+                    alpha, S = sol[0], sol[1:]
+                    fit_sur = 0.5 * (torch.dot(self.y, alpha) + n * math.log(2.0 * math.pi))
+                    with _prof.host_read("model.step.loss"):
+                        fit_sur = float(fit_sur)
+                with _step_grad_span():
+                    opt.zero_grad(set_to_none=True)
+                    # One operator per piece: each backward frees its graph, σ²'s included.
+                    (-0.5 * torch.dot(alpha, self._gram_op(chunk)(alpha[None, :])[0])).backward()
+                    off = 0
+                    for c in sizes:
+                        (0.5 * torch.sum(S[off : off + c] * self._gram_op(chunk)(Z[off : off + c])) / R).backward()
+                        off += c
+                    for p in frozen:
+                        if p.grad is not None:
+                            p.grad.zero_()
+                    gn = torch.sqrt(sum(p.grad.double().pow(2).sum() for p in params if p.grad is not None))
+                    with _prof.host_read("model.step.grad_norm"):
+                        gn = float(gn)
+                opt.step()
             self.cg_iterations = iters
             losses.append(fit_sur)
             gnorms.append(gn)
             if verbose:
                 print(f"[optimize_segmented] step {step + 1}/{max_iters}: data-fit {fit_sur:.4f} |g| {gn:.3e} "
-                      f"(solves {t_solve:.2f} s, {iters} CG iterations; grad {t_grad:.2f} s)", flush=True)
+                      f"({iters} CG iterations)", flush=True)
             if callback is not None:
-                callback(step, fit_sur, {"solve_s": t_solve, "grad_s": t_grad, "cg_iterations": iters})
+                callback(step, fit_sur, {"cg_iterations": iters})
         return FitResult(
             losses=np.asarray(losses), grad_norms=np.asarray(gnorms), iterations=len(losses),
             wall_time=time.perf_counter() - t0, converged=False, opt_state=opt.state_dict(),

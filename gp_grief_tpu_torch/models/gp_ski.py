@@ -65,8 +65,14 @@ from gp_grief_tpu_torch.ops.kron_fast import X3, batch_identity, kron_matvec_fas
 from gp_grief_tpu_torch.ops.precond import lowrank_spectral_factor, lowrank_sqrt_ops
 from gp_grief_tpu_torch.ops.solve import cholesky
 from gp_grief_tpu_torch.ops.topk import top_p_kron_eigs
+from gp_grief_tpu_torch.utils import profiling as _prof
 
 __all__ = ["GPSKIRegression", "lattice_cbar", "warn_lattice_small_n"]
+
+_nlml_span = _prof.site("gp_grief.model.nlml", entry=True)
+_step_span = _prof.site("gp_grief.model.step", "step", entry=True)
+_step_solve_span = _prof.site("gp_grief.model.step.solve")
+_step_grad_span = _prof.site("gp_grief.model.step.grad")
 
 # Log-eigenvalue sums closer than this are ties, broken by index (see the
 # module docstring); far above each precision's eigensolver noise at the
@@ -667,8 +673,9 @@ class GPSKIRegression(BaseModel):
 
         Parameters held by :meth:`fix` get a zero gradient.  ``callback(step,
         surrogate, info)``, called after each update, gets ``info`` with the
-        step's ``solve_s``, ``grad_s`` (host seconds, each ending in a read
-        of the device) and ``cg_iterations``.  Returns a
+        step's ``cg_iterations``.  Under a profiler each step is the span
+        ``gp_grief.model.step`` with its ``.solve`` and ``.grad``
+        (:mod:`~gp_grief_tpu_torch.utils.profiling`).  Returns a
         :class:`~gp_grief_tpu_torch.optimize.FitResult` whose ``losses`` are
         the surrogate objective (its trend is meaningful, its level is not:
         :meth:`log_likelihood_segmented` gives the NLML) and whose
@@ -684,26 +691,25 @@ class GPSKIRegression(BaseModel):
         losses = []
         t0 = time.perf_counter()
         for it in range(int(max_iters)):
-            t_s = time.perf_counter()
-            sol, z, iters = self._step_solves(self._generator(it), int(num_probes), cg_segment_iters)
-            self.cg_iterations = iters
-            sol[:1].sum().item()  # the solves' end, so that the two times split the step
-            t_solve = time.perf_counter() - t_s
-            t_s = time.perf_counter()
-            opt.zero_grad(set_to_none=True)
-            val = self._step_objective(sol, z)
-            val.backward()
-            for p in frozen:
-                if p.grad is not None:
-                    p.grad.zero_()
-            losses.append(float(val.detach()))
-            t_grad = time.perf_counter() - t_s
-            opt.step()
+            with _step_span(it):
+                with _step_solve_span():
+                    sol, z, iters = self._step_solves(self._generator(it), int(num_probes), cg_segment_iters)
+                self.cg_iterations = iters
+                with _step_grad_span():
+                    opt.zero_grad(set_to_none=True)
+                    val = self._step_objective(sol, z)
+                    val.backward()
+                    for p in frozen:
+                        if p.grad is not None:
+                            p.grad.zero_()
+                    with _prof.host_read("model.step.loss"):
+                        losses.append(float(val.detach()))
+                opt.step()
             if verbose:
                 print(f"[optimize_segmented] iter {it + 1:3d} surrogate {losses[-1]:.4f} "
-                      f"(solves {t_solve:.2f} s, {iters} CG iterations; grad {t_grad:.2f} s)", flush=True)
+                      f"({iters} CG iterations)", flush=True)
             if callback is not None:
-                callback(it, losses[-1], {"solve_s": t_solve, "grad_s": t_grad, "cg_iterations": iters})
+                callback(it, losses[-1], {"cg_iterations": iters})
         return FitResult(
             losses=np.asarray(losses), grad_norms=np.full(len(losses), np.nan), iterations=len(losses),
             wall_time=time.perf_counter() - t0, converged=False, opt_state=opt.state_dict(),
@@ -728,7 +734,7 @@ class GPSKIRegression(BaseModel):
         Value only."""
         o = self._opts
         lattice = self.solver == "lattice"
-        with torch.no_grad():
+        with torch.no_grad(), _nlml_span():
             sigma2 = torch.exp(self.log_noise)
             factors = self._factors()
             if lattice:
@@ -749,7 +755,8 @@ class GPSKIRegression(BaseModel):
             else:
                 alpha = x if unwhiten is None else unwhiten(x)
                 nlml = self._data_objective(self._matvec_bm(factors, sigma2), alpha, None, ld_off + ld_white)
-        return -float(nlml)
+            with _prof.host_read("model.nlml"):
+                return -float(nlml)
 
     # -- prediction --------------------------------------------------------------------
 
@@ -772,6 +779,7 @@ class GPSKIRegression(BaseModel):
             prior = s if prior is None else prior * s
         return prior
 
+    @_prof.spanned("gp_grief.model.predict.prep")
     def _predict_prep(self, factors, sigma2, variance: str, compute_var: bool, var_rank: int) -> dict:
         """The per-prediction precomputation: the mean representer
         ``K Wᵀ Â⁻¹ y`` and, for LOVE, the projected Krylov basis ``S`` and
@@ -811,6 +819,7 @@ class GPSKIRegression(BaseModel):
         prep.update(S=S, Tchol=cholesky(T))
         return prep
 
+    @_prof.spanned("gp_grief.model.predict.chunk")
     def _predict_chunk(self, prep: dict, variance: str, compute_var: bool, xc):
         """Mean and variance of one chunk of test points."""
         o = self._opts
@@ -857,6 +866,7 @@ class GPSKIRegression(BaseModel):
         var = prior_diag - torch.sum(C_bm * Sol, dim=1)
         return mean, torch.clamp_min(var, 0.0)
 
+    @_prof.spanned("gp_grief.model.predict", entry=True)
     def predict(
         self,
         x_new,
@@ -921,8 +931,8 @@ class GPSKIRegression(BaseModel):
             var = torch.cat(vars_)[:n_star]
             if guard_k > 0:
                 _, v_exact = self._predict_chunk(prep, "exact", True, x_new[:guard_k])
-                v_exact = v_exact.cpu().numpy()
-                v_love = var[:guard_k].cpu().numpy()
+                with _prof.host_read("model.predict.love_check", 2):
+                    v_exact, v_love = v_exact.cpu().numpy(), var[:guard_k].cpu().numpy()
                 # Denominator floor at 1% of the sample's largest variance: a
                 # denormal-tiny exact variance must not turn a negligible
                 # absolute deviation into an astronomic ratio.

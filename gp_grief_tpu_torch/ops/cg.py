@@ -34,8 +34,12 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from gp_grief_tpu_torch.ops.collectives import psum
+from gp_grief_tpu_torch.utils import profiling as _prof
 
 __all__ = ["CGInfo", "cg_segments", "cg_solve", "cg_solve_refined"]
+
+_solve_span = _prof.site("gp_grief.cg.solve", "rows", "cols", "refined")
+_segment_span = _prof.site("gp_grief.cg.segment", "iters")
 
 Matvec = Callable[[torch.Tensor], torch.Tensor]
 
@@ -102,6 +106,12 @@ def _make_pcg_step(matvec, precond, _colsum, _bc):
     return step
 
 
+def _flag(t: torch.Tensor, site: str) -> bool:
+    """``bool(t)``: one synchronising host read, spanned and counted."""
+    with _prof.host_read(site):
+        return bool(t)
+
+
 def _stop(bnorm: torch.Tensor, tol: float) -> torch.Tensor:
     # Clamp the relative tolerance at ~20·eps of the working dtype: an f64
     # default (1e-10) is unreachable in f32 and would spin to max_iters.
@@ -122,9 +132,10 @@ def _cg_raw(matvec, b, x0, tol, max_iters, M_inv, layout="col", group=None):
     dead = torch.zeros(rz.shape, dtype=torch.bool, device=b.device)
     step = _make_pcg_step(matvec, precond, _colsum, _bc)
     x, k = x0, 0
-    while k < max_iters and bool(torch.any((_colnorm(r) > stop) & ~dead)):
+    while k < max_iters and _flag(torch.any((_colnorm(r) > stop) & ~dead), "cg.solve"):
         x, r, z, p, rz, dead = step(x, r, z, p, rz, dead)
         k += 1
+    _prof.count("cg_iterations", k)
     return x, CGInfo(iterations=k, residual_norm=_colnorm(r))
 
 
@@ -171,6 +182,7 @@ def _cg_fixed(matvec, b, x0, num_iters, M_inv, layout="col", state_dtype=None, g
         r = _st(r32)
         rz = rz_new
     r32 = r.to(wd)
+    _prof.count("cg_iterations", num_iters)
     return x, CGInfo(iterations=num_iters, residual_norm=torch.sqrt(_colsum(r32 * r32)))
 
 
@@ -231,26 +243,30 @@ def cg_segments(op: Matvec, rhs: torch.Tensor, *, tol: float, max_iters: int, se
         stop = _stop(bnorm, tol)
         step = _make_pcg_step(op, M_inv if M_inv is not None else (lambda r_: r_), _colsum, _bc)
         rnorm = bnorm
-        go = bool(torch.any(rnorm > stop))
+        go = _flag(torch.any(rnorm > stop), "cg.segments")
         iters = 0
         for s in range(max(1, -(-int(max_iters) // int(segment_iters)))):
             if not go:
                 break
-            prev = rnorm
-            if state_dtype is not None:
-                state = _segment_mixed(op, state, segment_iters, _colsum, _bc, state_dtype)
-            else:
-                for _ in range(segment_iters):
-                    state = step(*state)
-            iters += segment_iters
-            rnorm = _colnorm(state[1])
-            # One read per segment: the stop test and the stagnation test.
-            go, moved, rel = torch.stack([torch.any((rnorm > stop) & ~state[5]), torch.any(rnorm < prev / 1.2),
-                                          torch.max(rnorm / torch.clamp_min(bnorm, 1e-30))]).tolist()
+            with _segment_span(int(segment_iters)):
+                prev = rnorm
+                if state_dtype is not None:
+                    state = _segment_mixed(op, state, segment_iters, _colsum, _bc, state_dtype)
+                else:
+                    for _ in range(segment_iters):
+                        state = step(*state)
+                iters += segment_iters
+                rnorm = _colnorm(state[1])
+                # One read per segment: the stop test and the stagnation test.
+                tests = torch.stack([torch.any((rnorm > stop) & ~state[5]), torch.any(rnorm < prev / 1.2),
+                                     torch.max(rnorm / torch.clamp_min(bnorm, 1e-30))])
+                with _prof.host_read("cg.segments"):
+                    go, moved, rel = tests.tolist()
             if verbose:
                 print(f"[cg_segments] segment {s + 1}: iters={iters} max_rel_resid={rel:.3e}")
             if not moved:
                 break
+    _prof.count("cg_iterations", iters)
     return state[0], iters
 
 
@@ -347,7 +363,7 @@ def cg_solve(
     x0b = torch.zeros_like(bb) if x0 is None else _as_batch(x0, layout)[0]
 
     def raw(rhs, start):
-        with torch.no_grad():
+        with torch.no_grad(), _solve_span(int(rhs.shape[0]), int(rhs.shape[1]), False):
             if fixed_iters is not None:
                 return _cg_fixed(matvec, rhs, start, fixed_iters, M_inv, layout, group=group)
             return _cg_raw(matvec, rhs, start, tol, max_iters, M_inv, layout, group)
@@ -371,11 +387,11 @@ def _refined(matvec_fast, matvec_exact, rhs, tol, inner_iters, max_restarts, M_i
     # ``refresh``): 1 + restarts exact applies in all, plus the fallback's.
     r = rhs - matvec_exact(x)
     outer = 0
-    while outer < max_restarts and bool(torch.any(rnorm_best > stop)):
+    while outer < max_restarts and _flag(torch.any(rnorm_best > stop), "cg.refined"):
         # Divergence brake: once the current residual exceeds 100x the best
         # seen, further restarts are hopeless (κ beyond the fast matvec's
         # precision); keep the best iterate.
-        if bool(torch.all(rnorm > 100.0 * torch.maximum(rnorm_best, stop))):
+        if _flag(torch.all(rnorm > 100.0 * torch.maximum(rnorm_best, stop)), "cg.refined"):
             break
         d, _ = _cg_fixed(matvec_fast, r, None, inner_iters, M_inv, layout, state_dtype, group)
         x = x + d
@@ -396,7 +412,7 @@ def _refined(matvec_fast, matvec_exact, rhs, tol, inner_iters, max_restarts, M_i
     # Any system above tolerance after refinement finishes with exact CG
     # warm-started from the best iterate, so "mixed" is never worse than
     # "exact" in result, only in time (benchmarks/RESULTS_r5.md §12).
-    if bool(torch.any(rnorm_best > stop)):
+    if _flag(torch.any(rnorm_best > stop), "cg.refined"):
         xf, info = _cg_raw(matvec_exact, rhs, x_best, tol, inner_iters * max_restarts, M_inv, layout, group)
         better = info.residual_norm < rnorm_best
         x_best = torch.where(_bc(better), xf, x_best)
@@ -446,7 +462,7 @@ def cg_solve_refined(
     bb, unsqueeze = _as_batch(b, layout)
 
     def raw(rhs):
-        with torch.no_grad():
+        with torch.no_grad(), _solve_span(int(rhs.shape[0]), int(rhs.shape[1]), True):
             return _refined(matvec_fast, matvec_exact, rhs, tol, inner_iters, max_restarts, M_inv, layout,
                             state_dtype, group)
 

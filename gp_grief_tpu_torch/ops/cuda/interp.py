@@ -28,10 +28,12 @@ import torch
 
 from gp_grief_tpu_torch.ops.cuda import _build
 from gp_grief_tpu_torch.ops.interp import InterpPlan, interp_matvec_bm_fast, interp_rmatvec_bm_exact
+from gp_grief_tpu_torch.utils import profiling as _prof
 
 __all__ = ["interp_w", "interp_wt"]
 
 _SYMBOLS = {torch.float32: "gp_grief_interp_wt_f32", torch.float64: "gp_grief_interp_wt_f64"}
+_interp_span = _prof.site("gp_grief.interp", "op", "B", "length")
 
 
 def u_layout(u: torch.Tensor) -> torch.Tensor:
@@ -93,9 +95,10 @@ def interp_wt(plan: InterpPlan, u_bm: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"interp_wt: u must be (B, {plan.n}), got {tuple(u_bm.shape)}")
     if plan.src_col.device != u_bm.device:
         raise ValueError(f"interp_wt: plan on {plan.src_col.device}, u on {u_bm.device}")
-    if torch.is_grad_enabled() and u_bm.requires_grad:
-        return _InterpWt.apply(plan, u_bm)
-    return _forward(plan, u_bm)  # a solver's apply: no graph to build
+    with _interp_span("wt", int(u_bm.shape[0]), int(u_bm.shape[1])):
+        if torch.is_grad_enabled() and u_bm.requires_grad:
+            return _InterpWt.apply(plan, u_bm)
+        return _forward(plan, u_bm)  # a solver's apply: no graph to build
 
 
 interp_wt.launches = 0
@@ -118,6 +121,7 @@ def interp_w(plan: InterpPlan, v_bm: torch.Tensor) -> torch.Tensor:
     card, its plain version on the CPU) as the backward."""
     if v_bm.ndim != 2 or int(v_bm.shape[1]) != plan.M:
         raise ValueError(f"interp_w: v must be (B, {plan.M}), got {tuple(v_bm.shape)}")
-    if torch.is_grad_enabled() and v_bm.requires_grad:
-        return _InterpW.apply(plan, v_bm)
-    return interp_matvec_bm_fast(plan, v_bm)  # a solver's apply: no graph to build
+    with _interp_span("w", int(v_bm.shape[0]), int(v_bm.shape[1])):
+        if torch.is_grad_enabled() and v_bm.requires_grad:
+            return _InterpW.apply(plan, v_bm)
+        return interp_matvec_bm_fast(plan, v_bm)  # a solver's apply: no graph to build

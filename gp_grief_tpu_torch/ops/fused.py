@@ -37,10 +37,14 @@ import numpy as np
 import torch
 
 from gp_grief_tpu_torch.ops import lanczos as _lanczos
-from gp_grief_tpu_torch.ops.cg import _make_pcg_step, _reducers
+from gp_grief_tpu_torch.ops.cg import _make_pcg_step, _reducers, _segment_span
 from gp_grief_tpu_torch.ops.lanczos import _chunk_quadrature_total, _probe_chunk_sizes, _slq_quadrature
+from gp_grief_tpu_torch.utils import profiling as _prof
 
 __all__ = ["make_fused_cg_lanczos_step", "fused_cg_slq_segment", "fused_cg_slq"]
+
+_chunk_span = _prof.site("gp_grief.slq.chunk", "probes", "iters", "fused")
+_quadrature_span = _prof.site("gp_grief.slq.quadrature")
 
 Operator = Callable[[torch.Tensor], torch.Tensor]
 
@@ -193,7 +197,8 @@ def fused_cg_slq(
     x0 = torch.zeros_like(rhs)
     rz0 = _colsum(rhs * rhs)
     state = (x0, rhs, rhs, rhs, rz0, torch.zeros(rz0.shape, dtype=torch.bool, device=device))
-    bnorm = torch.sqrt(rz0).cpu().numpy().astype(np.float64)
+    with _prof.host_read("fused.start"):
+        bnorm = torch.sqrt(rz0).cpu().numpy().astype(np.float64)
     eps, tiny = torch.finfo(dtype).eps, torch.finfo(dtype).tiny
     stop = max(float(cg_tol), 20.0 * eps) * np.maximum(bnorm, tiny)
     freeze = torch.as_tensor(stop * stop, dtype=dtype, device=device)
@@ -210,17 +215,23 @@ def fused_cg_slq(
     rnorm_h, dead_h = bnorm, np.zeros(bnorm.shape, bool)
     sizes = _probe_chunk_sizes(num_probes, probe_chunk)
     for c, r in enumerate(sizes):
-        Z = _lanczos.rademacher((r, m), dtype=dtype, device=device, generator=generator)
-        cg_in = state if fuse_probes else no_rows
-        cg_out, (alphas, betas, alive) = _run_chunk(step, cg_in, Z, k, _colnorm, _bc)
-        quad_in = torch.cat([alphas, betas, alive.to(dtype)], dim=1).cpu().numpy()
-        a_h, b_h, alive_h = quad_in[:, :r], quad_in[:, r : 2 * r], quad_in[:, 2 * r :] != 0
-        total += _chunk_quadrature_total([a_h], [b_h], [alive_h], _colsum(Z * Z).cpu().numpy(), k)
-        if fuse_probes:
-            state = cg_out
-            iters += k
-            rnorm_h = _colnorm(state[1]).cpu().numpy()
-            dead_h = state[5].cpu().numpy()
+        with _chunk_span(r, k, bool(fuse_probes)):
+            Z = _lanczos.rademacher((r, m), dtype=dtype, device=device, generator=generator)
+            cg_in = state if fuse_probes else no_rows
+            cg_out, (alphas, betas, alive) = _run_chunk(step, cg_in, Z, k, _colnorm, _bc)
+            quad_in = torch.cat([alphas, betas, alive.to(dtype)], dim=1)
+            zn = _colsum(Z * Z)
+            with _prof.host_read("fused.chunk", 2):
+                quad_in, zn = quad_in.cpu().numpy(), zn.cpu().numpy()
+            with _quadrature_span():
+                a_h, b_h, alive_h = quad_in[:, :r], quad_in[:, r : 2 * r], quad_in[:, 2 * r :] != 0
+                total += _chunk_quadrature_total([a_h], [b_h], [alive_h], zn, k)
+            if fuse_probes:
+                state = cg_out
+                iters += k
+                rn = _colnorm(state[1])
+                with _prof.host_read("fused.chunk", 2):
+                    rnorm_h, dead_h = rn.cpu().numpy(), state[5].cpu().numpy()
         report(f"probe chunk {c + 1}/{len(sizes)}", iters, rnorm_h)
 
     pcg_step = _make_pcg_step(op, lambda r_: r_, _colsum, _bc)
@@ -229,9 +240,13 @@ def fused_cg_slq(
     for s in range(-(-leftover // seg)):
         if not np.any((rnorm_h > stop) & ~dead_h):
             break
-        for _ in range(seg):
-            state = pcg_step(*state)
-        iters += seg
-        rnorm_h, dead_h = _colnorm(state[1]).cpu().numpy(), state[5].cpu().numpy()
+        with _segment_span(seg):
+            for _ in range(seg):
+                state = pcg_step(*state)
+            iters += seg
+            rn = _colnorm(state[1])
+            with _prof.host_read("fused.segment", 2):
+                rnorm_h, dead_h = rn.cpu().numpy(), state[5].cpu().numpy()
         report(f"cg segment {s + 1}", iters, rnorm_h)
+    _prof.count("cg_iterations", iters)
     return state[0], total / int(num_probes), iters

@@ -28,8 +28,11 @@ import numpy as np
 import torch
 
 from gp_grief_tpu_torch.ops.interp import CornerStream, InterpWeights, build_corner_stream
+from gp_grief_tpu_torch.utils import profiling as _prof
 
 __all__ = ["WtWStencil", "build_wtw_stencil", "make_wtw_stencil_op", "stencil_apply_ref", "wtw_stencil_bm"]
+
+_stencil_span = _prof.site("gp_grief.stencil", "B", "M", "D")
 
 
 class WtWStencil(NamedTuple):
@@ -152,9 +155,12 @@ def wtw_stencil_bm(st: WtWStencil, v_bm: torch.Tensor) -> torch.Tensor:
 
 
 def make_wtw_stencil_op(st: WtWStencil):
-    """Closure form of :func:`wtw_stencil_bm` for solver plumbing."""
+    """Closure form of :func:`wtw_stencil_bm` for solver plumbing, each
+    apply spanned as ``gp_grief.stencil``."""
+    D = len(st.deltas)
 
     def wtw(v_bm):
-        return wtw_stencil_bm(st, v_bm)
+        with _stencil_span(int(v_bm.shape[0]), int(v_bm.shape[1]), D):
+            return wtw_stencil_bm(st, v_bm)
 
     return wtw

@@ -31,12 +31,14 @@ from gp_grief_tpu_torch.ops.cuda.kron import (
     split_lead,
     tile_only,
 )
+from gp_grief_tpu_torch.utils import profiling as _prof
 
 __all__ = ["batch_identity", "group_factors", "hopper_gate", "kernel_route", "kron_matvec_fast"]
 
 PRECISIONS = ("highest", "default")
 # The JAX package's lax.DotAlgorithmPreset.BF16_BF16_F32_X3, by name.
 X3 = "BF16_BF16_F32_X3"
+_kron_span = _prof.site("gp_grief.kron", "route", "B", "M", "grade")
 
 
 def _kron2(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -236,8 +238,9 @@ def kron_matvec_fast(
     if squeeze:
         v = v[:, None]
     B = int(v.shape[1])
-    if impl != "xla":
-        route = kernel_route(factors, B, precision, vector_dtype=v.dtype if v.is_cuda else None, impl=impl)
+    route = "chain" if impl == "xla" else kernel_route(factors, B, precision,
+                                                       vector_dtype=v.dtype if v.is_cuda else None, impl=impl)
+    with _kron_span(route, B, int(v.shape[0]), precision):
         if route != "chain":
             fast = precision == "default"
             if route == "slab":
@@ -250,17 +253,17 @@ def kron_matvec_fast(
             else:
                 out = kron_matvec_fused(factors, v, precision="default" if fast else "highest")
             return out[:, 0] if squeeze else out
-    gf = group_factors(factors, target_width=target_width)
-    rows = math.prod(int(K.shape[0]) for K in gf)
-    x = v
-    for K in gf:
-        mk = int(K.shape[1])
-        X = x.reshape(mk, -1)  # (mk, rest·B)
-        K = K.to(X.dtype)
-        # Narrow (< 128) passes run at full precision, as in the JAX chain;
-        # the fast grade applies to the wide passes only.
-        if precision == "default" and mk >= 128:
-            X, K = _bf16_operands(X), _bf16_operands(K)
-        x = X.T @ K.T  # (rest·B, mk'): the contracted axis moves last
-    out = x.reshape(B, rows)
-    return out[0] if squeeze else out.T
+        gf = group_factors(factors, target_width=target_width)
+        rows = math.prod(int(K.shape[0]) for K in gf)
+        x = v
+        for K in gf:
+            mk = int(K.shape[1])
+            X = x.reshape(mk, -1)  # (mk, rest·B)
+            K = K.to(X.dtype)
+            # Narrow (< 128) passes run at full precision, as in the JAX
+            # chain; the fast grade applies to the wide passes only.
+            if precision == "default" and mk >= 128:
+                X, K = _bf16_operands(X), _bf16_operands(K)
+            x = X.T @ K.T  # (rest·B, mk'): the contracted axis moves last
+        out = x.reshape(B, rows)
+        return out[0] if squeeze else out.T
