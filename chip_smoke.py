@@ -91,7 +91,13 @@ non-zero without printing the final line:
              1 + 8-row Q/Qᵀ apply on K2, float32 and bf16); ski1m_lattice's
              ``log_likelihood_segmented`` against ``log_likelihood``.
 13. gp_iter — ``GPRegression``'s iterative path, matrix-free, on
-             benchmarks/exp_r15_train500k.py's recipe (GP_ITER): float64 at
+             benchmarks/exp_r15_train500k.py's recipe (GP_ITER).  First K9
+             (``ops.cuda.gram.gram_apply``, the solver role's Gram apply) at
+             gp40k's (B, n, d) = (9, 40000, 2), float32 "highest" and
+             "default", float64: each route's normwise error against the
+             float64 apply, K9's within 1.5 × the slab route's + 2 eps; two
+             launches bit-identical; K9's CUDA-event and device ms and the
+             slab route's ms beside the bound.  Then float64 at
              n = 4096 with the JAX package's numpy probes against
              tools/gp_iterative_reference_f64.json (segmented NLML, loss and
              gradient, one optimize_segmented step, predict); gp40k_matfree
@@ -101,8 +107,8 @@ non-zero without printing the final line:
              optimize and 3 of
              optimize_segmented, each twice bit for bit and the Cholesky NLML
              lower after), with wall, device time, idle share, peak memory,
-             CG iterations and one apply's device time beside its bound
-             (device time from NVML's busy share: BusySampler);
+             CG iterations (device time from NVML's busy share:
+             BusySampler; one apply's times are K9's check's, above);
              gp500k_matfree (one apply at n = 500k against float64 rows,
              then one segmented NLML at GP500K_NLML_N); optimize_segmented
              at GP_ITER_TRAIN_N (PERF.md §4 gives the cuts).
@@ -163,14 +169,16 @@ line (K1 launches from phases 4-5 (14a among them) and configs,
 K2/K3 from phase 7 (14b among them; K2's ``batched_applies`` from phases 9
 and 12, each entry's ``route_table_rows`` from phase 6), K4/K5 from
 phase 9's float32 runs, K6-K8 from phase 10; ``training_launches`` from
-phases 11-12; phase 13 launches none; ``parallel_launches``, the ranks' sum
-over phase 15; K2's ``bench_launches``, the bench process's over phase 16;
-``demo_launches``, phase 17 (a)'s, the demos' ranks included)
+phases 11-12; K9 (gram_apply) from phase 13 (its check's calls left out);
+``parallel_launches``, the ranks' sum over phase 15; K2's
+``bench_launches``, the bench process's over phase 16; ``demo_launches``,
+phase 17 (a)'s, the demos' ranks included; K9's, demo_exact_matrixfree's)
 and, last, ``{"ok": true, "device": {...}}``.  This script imports no JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -244,9 +252,11 @@ KERNEL_TOL = {"float32": 1e-5, "float64": 1e-12}
 # (3xTF32), 495e12 / 3, above the 67e12 of FP32 FMA outside the tensor cores,
 # so a bound reads the same work whichever unit a kernel runs it on; bf16 for
 # "default".  "fp32" is the CUDA cores' rate: K1's, which keeps plain FP32
-# FMA chains for their bits and so runs its operations there.
+# FMA chains for their bits and so runs its operations there; "fp64" theirs
+# in double (K9's float64 members), half that (the tensor cores' 67e12
+# FP64 needs DMMA, which no kernel here uses).
 H100_BYTES_PER_S = 3.35e12
-H100_FLOPS = {"highest": 495e12 / 3, "default": 989e12, "fp32": 67e12}
+H100_FLOPS = {"highest": 495e12 / 3, "default": 989e12, "fp32": 67e12, "fp64": 34e12}
 
 # (name, d, n, m, p): the shapes the main path hands K1.  uci2m's stats
 # chunk is also each row chunk of its iterative NLML's Φ; d100's is its
@@ -2265,8 +2275,8 @@ def phase_ski_train(card: str, name: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 13: GPRegression's iterative path (no kernel of the port: the Gram
-# slabs and their contraction are PyTorch ops).
+# Phase 13: GPRegression's iterative path (the solver role's Gram applies on
+# K9; the differentiated role's slabs and contractions are PyTorch ops).
 # ---------------------------------------------------------------------------
 
 # benchmarks/exp_r15_train500k.py's recipe: x ~ U[0, 8]², y = sin x₀ ·
@@ -2331,12 +2341,13 @@ def gp_iter_model(x, y, dtype, device, **overrides):
                             **{**GP_ITER, **overrides})
 
 
-def gram_apply_bound_ms(n: int, B: int, d: int = 2) -> float:
+def gram_apply_bound_ms(n: int, B: int, d: int = 2, rate: str = "fp32") -> float:
     """The least time one apply of the matrix-free Gram could take: n² entries,
     each 2d flops of distance, ~8 more (scale, clamp, snap, the exp as one,
-    the variance) and 2B of contraction, at the FP32 rate (TF32 is off).
-    Its bytes (x, vv and the output, once each) are under 0.1% of that."""
-    return n * n * (2 * d + 8 + 2 * B) / H100_FLOPS["fp32"] * 1e3
+    the variance) and 2B of contraction, at the FP32 rate (TF32 is off;
+    ``rate="fp64"`` for double).  Its bytes (x, vv and the output, once each)
+    are under 0.1% of that."""
+    return n * n * (2 * d + 8 + 2 * B) / H100_FLOPS[rate] * 1e3
 
 
 class BusySampler:
@@ -2437,6 +2448,77 @@ def chol_exact(model, x_star=None, n_var: int = 0, grad: bool = False, block: in
     return out
 
 
+@contextlib.contextmanager
+def slab_route():
+    """A context in which ``make_gram_matvec`` builds its solver role on the
+    slab path (``_solver_slab`` + ``_contract``), as off the card."""
+    from gp_grief_tpu_torch.models import gp_regression as tgr
+
+    saved, tgr.fused_route = tgr.fused_route, (lambda *_: False)
+    try:
+        yield
+    finally:
+        tgr.fused_route = saved
+
+
+def phase_gram_kernel(card: str) -> dict:
+    """K9 (``ops.cuda.gram.gram_apply``) as gp40k's path runs it: the solver
+    role of the recipe's model at n = 40,000 (d = 2, B = 1 + 8 probes),
+    float32 at "highest" and "default" and float64 at "highest".  Each
+    route's normwise error against the float64 apply of the same inputs
+    (``|y − y64|`` over the apply of ``|vv|``), K9's within 1.5 × the slab
+    route's + 2 eps (tests/test_torch_gram_cuda.py's rule); two calls
+    bit-identical; K9's CUDA-event and device ms, its plan, and the slab
+    route's ms, beside the bound (at FP64's rate for float64).  Returns each
+    case's figures by its tag ("float32 highest", ...)."""
+    import copy
+
+    import torch
+    from gp_grief_tpu_torch.ops.cuda import gram
+
+    cfg = GP_ITER_CONFIGS["gp40k_matfree"]
+    n, chunk, B = cfg["n"], cfg["matvec_chunk"], 1 + GP_ITER["num_probes"]
+    x, y = gp_iter_data(n)
+    v64 = torch.randn((B, n), device=DEVICE, dtype=torch.float64,
+                      generator=torch.Generator(device=DEVICE).manual_seed(2))
+    summary = {}
+    for dtype, precision in ((torch.float32, "highest"), (torch.float32, "default"), (torch.float64, "highest")):
+        tag = f"{str(dtype).replace('torch.', '')} {precision}"
+        model = gp_iter_model(x, y, dtype, DEVICE, matvec_chunk=chunk)
+        vv = v64.to(dtype)
+        with torch.no_grad():
+            mv = model._gram_op(chunk, precision)
+            with slab_route():
+                mv_slab = model._gram_op(chunk, precision)
+            got, again, slab = mv(vv), mv(vv), mv_slab(vv)
+            k64 = copy.deepcopy(model.kernel).double()
+            x64, vr, s64 = model.x.double(), vv.double(), torch.exp(model.log_noise).double()
+            want = gram.gram_apply_ref(k64, x64, vr, s64)
+            scale = gram.gram_apply_ref(k64, x64, vr.abs(), s64)
+            err, err_slab = (float(((t.double() - want).abs() / scale).max()) for t in (got, slab))
+            abs_err = float((got.double() - want).abs().max())
+            identical = bool(torch.equal(got, again))
+            finite = tuple(got.shape) == (B, n) and bool(torch.isfinite(got).all())
+            del got, again, slab, want, scale, x64, vr
+            ms, dev_ms = cuda_ms(lambda: mv(vv)), device_ms(lambda: mv(vv), reps=5, warmup=1)
+            slab_ms = cuda_ms(lambda: mv_slab(vv), reps=3, warmup=1)
+            p = gram.plan(n, x.shape[1], B, dtype, model.kernel.kind, precision == "default", 0)
+        tol = 1.5 * err_slab + 2 * torch.finfo(dtype).eps
+        bound = gram_apply_bound_ms(n, B, rate="fp64" if dtype == torch.float64 else "fp32")
+        row = {"ms": ms, "device_ms": dev_ms, "slab_ms": slab_ms, "bound_ms": bound, "bound_by": "operations",
+               "err": err, "err_slab": err_slab, "tol": tol, "max_abs_err": abs_err,
+               "two_launches_identical": identical, "plan": p._asdict()}
+        emit({"phase": "gram_kernel", "kernel": "gram_apply", "dtype": tag, "B": B, "n": n, "d": x.shape[1],
+              **row, "card": card})
+        check(finite, f"K9 {tag}: bad output")
+        check(err <= tol, f"K9 {tag}: normwise error {err:.3e} over 1.5 x the slab route's {err_slab:.3e}")
+        check(identical, f"K9 {tag}: two launches differ")
+        summary[tag] = row
+        del model, mv, mv_slab, vv
+        torch.cuda.empty_cache()
+    return summary
+
+
 def phase_gp_iter_f64(reference: dict) -> dict:
     """The card's float64 run of the recipe at tools/gp_iterative_reference_f64.json's
     size, with the JAX package's NumPy probes in the same call order: the
@@ -2473,15 +2555,17 @@ def phase_gp_iter_f64(reference: dict) -> dict:
 def train_twice(model, start, run):
     """``run(stats)`` from the same start twice, the second run measured
     (:func:`run_measured`): the first run's result, whether the two agree
-    bit for bit, the per-step rows and the second run's figures."""
+    bit for bit, the per-step rows (K9's launches among them) and the second
+    run's figures."""
     import torch
+    from gp_grief_tpu_torch.ops.cuda import gram_apply
 
     runs = []
     for _ in range(2):
         with torch.no_grad():
             for (_, p), v in zip(model._leaves(), start):
                 p.copy_(v)
-        with StepStats({}, False) as stats:
+        with StepStats({"K9": gram_apply}, False) as stats:
             res, measured = run_measured(lambda: run(stats))
         runs.append((res, [p.detach().clone() for _, p in model._leaves()], stats.rows, measured))
     (r0, p0, rows, _), (r1, p1, _, measured) = runs
@@ -2514,15 +2598,6 @@ def phase_gp40k(card: str) -> dict:
     (mean, (mean_v, var)), st = run_measured(
         lambda: (model.predict(xs, compute_var=False), model.predict(xs[:GP40K_VAR_POINTS])))
     out["predict"] = {"mean_points": GP40K_MEAN_POINTS, "var_points": GP40K_VAR_POINTS, **st}
-    with torch.no_grad():
-        vv = torch.randn((1 + GP_ITER["num_probes"], n), device=DEVICE,
-                         generator=torch.Generator(device=DEVICE).manual_seed(2))
-        mv, mv_fast = model._gram_op(chunk), model._gram_op(chunk, "default")
-        out["apply"] = {"B": vv.shape[0], "device_ms": device_ms(lambda: mv(vv), reps=3, warmup=1),
-                        "ms": cuda_ms(lambda: mv(vv), reps=5, warmup=1),
-                        "ms_default_precision": cuda_ms(lambda: mv_fast(vv), reps=5, warmup=1),
-                        "bound_ms": gram_apply_bound_ms(n, vv.shape[0]), "bound_by": "operations"}
-        del vv, mv, mv_fast
 
     m16 = gp_iter_model(x, y, torch.float32, DEVICE, matvec_chunk=chunk, mixed16=True)
     with ExactApplies() as refined:
@@ -2632,10 +2707,11 @@ def phase_gp_iter_train(card: str, n: int) -> dict:
     Whether they lower the NLML is held at gp40k, against the Cholesky
     model."""
     import torch
+    from gp_grief_tpu_torch.ops.cuda import gram_apply
 
     x, y = gp_iter_data(n)
     model = gp_iter_model(x, y, torch.float32, DEVICE, matvec_chunk="auto")
-    with StepStats({}, False) as stats:
+    with StepStats({"K9": gram_apply}, False) as stats:
         res, st = run_measured(lambda: model.optimize_segmented(
             max_iters=GP_ITER_TRAIN_STEPS, callback=lambda it, value, info: stats.step(surrogate=value, **info),
             **GP_ITER_TRAIN))
@@ -2653,13 +2729,21 @@ def phase_gp_iter_train(card: str, n: int) -> dict:
     return out
 
 
-def phase_gp_iter(card: str) -> None:
-    """Phase 13: GPRegression's iterative path (see the module docstring)."""
+def phase_gp_iter(card: str) -> dict:
+    """Phase 13: GPRegression's iterative path (see the module docstring).
+    K9 against its plain versions first; returns K9's figures
+    (:func:`phase_gram_kernel`) and its launches over the path's runs."""
+    from gp_grief_tpu_torch.ops.cuda import gram_apply
+
+    k9 = phase_gram_kernel(card)
+    gram_apply.launches = 0
     ref = phase_gp_iter_f64(json.load(open(GP_ITER_REFERENCE)))
     emit({"phase": "gp_iter_f64", **ref, "card": card})
     phase_gp40k(card)
     phase_gp500k(card)
     phase_gp_iter_train(card, GP_ITER_TRAIN_N)
+    check(gram_apply.launches > 0, "the iterative GP path never launched K9")
+    return {"figures": k9, "launches": gram_apply.launches}
 
 
 # ---------------------------------------------------------------------------
@@ -3241,15 +3325,20 @@ def phase_demos(card: str) -> dict:
     and its K1-K5 launches (the ranks' summed in); checked by
     :func:`demo_checks`.  (b) Each demo's CPU recipe at DEMO_CPU_ARGS on
     the card, with :class:`DemoProbes`, held to JAX_DEMOS at DEMO_RTOL.
-    Returns part (a)'s launches, summed over the demos."""
+    Returns part (a)'s launches, summed over the demos, and K9's over (a),
+    counted in this process (demo_exact_matrixfree's)."""
+    from gp_grief_tpu_torch.ops.cuda import gram_apply
+
     t_phase = time.perf_counter()
     total = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5")}
+    k9_before = gram_apply.launches
     for name, kw in DEMO_CARD.items():
         v, stats = run_measured(lambda: _demo_run(name, device=DEVICE, **kw))
         for k in total:
             total[k] += v["launches"][k]
         emit({"phase": "demos", "part": "card", "demo": name, **stats, "values": v, "card": card})
         demo_checks(name, v)
+    total["K9"] = gram_apply.launches - k9_before  # demo_exact_matrixfree's, in this process
     t_card = time.perf_counter() - t_phase
     for name, sizes in DEMO_CPU_ARGS.items():
         kw = dict(sizes, device=DEVICE, recipe="cpu") if name != "demo_sharded" else dict(sizes, device=DEVICE)
@@ -3299,12 +3388,12 @@ def main() -> int:
     axes = phase_kron_axes(card)
 
     from gp_grief_tpu_torch.ops.cuda import (
-        interp_wt, kron_matmat_cuda, kron_matvec_fused, kron_matvec_slab, last_slab_pass, tail2_pass, tail3_pass,
-        wtw_stencil,
+        gram_apply, interp_wt, kron_matmat_cuda, kron_matvec_fused, kron_matvec_slab, last_slab_pass, tail2_pass,
+        tail3_pass, wtw_stencil,
     )
 
     counters = (phi_fused, kron_matvec_slab, kron_matvec_fused, interp_wt, wtw_stencil, kron_matmat_cuda,
-                last_slab_pass, tail3_pass, tail2_pass)
+                last_slab_pass, tail3_pass, tail2_pass, gram_apply)
 
     def reset():
         for fn in counters:
@@ -3400,14 +3489,25 @@ def main() -> int:
         exact_counts(entry, fn, "training_exact_tile_launches")
     for fn in (kron_matvec_slab, kron_matvec_fused, interp_wt, wtw_stencil):
         check(fn.launches > 0, f"the training phases never launched {fn.__name__}")
+    k9_training = gram_apply.launches
     # The SKI solves' batched Kronecker applies (batch_identity rows) and the
     # K2 launches they made: phase 9's profiled NLMLs, phase 12's first runs.
     entries[1]["batched_applies"] = {"nlml": {c: per_nlml[c]["batched"] for c in SKI_CONFIGS},
                                      "train": batched_train}
 
-    # Phase 13: GPRegression's iterative path, which launches no kernel of the
-    # port (its Gram slabs are PyTorch ops).
-    phase_gp_iter(card)
+    # Phase 13: GPRegression's iterative path: its solver role's Gram applies
+    # on K9 (checked against its plain versions first), its differentiated
+    # role's slabs by PyTorch ops.  K9's ``launches`` are the path's.
+    k9 = phase_gp_iter(card)
+    f32 = k9["figures"]["float32 highest"]
+    entries.append({"name": "gram_apply", "route": "cuda", "source": "gp_grief_tpu_torch/csrc/gram_apply.cu",
+                    "replaces": None, "launches": k9["launches"], "max_abs_err": f32["max_abs_err"],
+                    "normwise_err": {tag: r["err"] for tag, r in k9["figures"].items()},
+                    "ms": f32["ms"], "device_ms": f32["device_ms"], "plain_ms": f32["slab_ms"],
+                    "plain": "the slab route", "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
+                    "library_ms": None, "float64_device_ms": k9["figures"]["float64 highest"]["device_ms"],
+                    "default_device_ms": k9["figures"]["float32 default"]["device_ms"],
+                    "training_launches": k9_training})
 
     # Phase 15: the sharded paths, on ranks of their own; each rank counts its
     # launches from 0 over its cases' main paths, and the ranks' sums are
@@ -3415,7 +3515,7 @@ def main() -> int:
     par_launches = phase_parallel(card)
     for key in ("K1", "K3", "K4", "K5"):
         check(par_launches[key] > 0, f"the sharded paths never launched {key}")
-    for entry, key in zip(entries, ("K1", "K2", "K3", "K4", "K5", None, None, None, None)):
+    for entry, key in zip(entries, ("K1", "K2", "K3", "K4", "K5", None, None, None, None, None)):
         entry["parallel_launches"] = par_launches[key] if key else 0
 
     # Phase 16: the headline benchmark, in a process of its own; its K2
@@ -3428,7 +3528,7 @@ def main() -> int:
     demo_launches = phase_demos(card)
     for key, count in demo_launches.items():
         check(count > 0, f"the demos never launched {key}")
-    for entry, key in zip(entries, ("K1", "K2", "K3", "K4", "K5", None, None, None, None)):
+    for entry, key in zip(entries, ("K1", "K2", "K3", "K4", "K5", None, None, None, None, "K9")):
         entry["demo_launches"] = demo_launches[key] if key else 0
 
     print(card, flush=True)

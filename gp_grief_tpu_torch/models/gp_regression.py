@@ -7,11 +7,12 @@ solves.  ``solver="iterative"`` replaces the factor by CG solves (the
 quadratic term, predictions) and SLQ (the log-det), with BBMM surrogates
 carrying the gradient, on the dense Gram (``matvec_chunk = 0``) or on the
 matrix-free operator of :func:`make_gram_matvec` (``matvec_chunk > 0``),
-which rebuilds ``(chunk, n)`` Gram slabs per apply and never holds an
-``(n, n)`` buffer, so n is bounded by compute (n = 500k fits one card).
-``precond_rank > 0`` whitens CG and SLQ with a partial pivoted Cholesky
-factor (``ops.precond.pivoted_cholesky_matfree``).  No CUDA kernel of the
-port runs here: the slab build and its contraction are PyTorch ops.
+which never holds an ``(n, n)`` buffer, so n is bounded by compute (n = 500k
+fits one card).  ``precond_rank > 0`` whitens CG and SLQ with a partial
+pivoted Cholesky factor (``ops.precond.pivoted_cholesky_matfree``).  On the
+card the solver's applies of one stationary kernel run on kernel K9
+(``ops.cuda.gram``); the differentiated applies, and every apply on the CPU,
+rebuild ``(chunk, n)`` Gram slabs by PyTorch ops and contract them.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from gp_grief_tpu_torch.kernels.stationary import Stationary, _from_r2, _use_bro
 from gp_grief_tpu_torch.models.base import BaseModel, check_xy, resolve_device
 from gp_grief_tpu_torch.models.gp_grief import _resolve_dtype, _to_tensor
 from gp_grief_tpu_torch.ops import lanczos as _lz
+from gp_grief_tpu_torch.ops.cuda.gram import fused_route, gram_apply
 from gp_grief_tpu_torch.ops.cg import cg_segments, cg_solve, cg_solve_refined
 from gp_grief_tpu_torch.ops.fused import fused_cg_slq
 from gp_grief_tpu_torch.ops.precond import lowrank_sqrt_ops_from_factor, pivoted_cholesky, pivoted_cholesky_matfree
@@ -43,7 +45,7 @@ from gp_grief_tpu_torch.utils import profiling as _prof
 
 __all__ = ["GPRegression", "gp_nlml", "gp_nlml_iterative", "make_gram_matvec"]
 
-_gram_span = _prof.site("gp_grief.gram", "B", "n", "blocks")
+_gram_span = _prof.site("gp_grief.gram", "B", "n", "blocks", "route")
 _slab_span = _prof.site("gp_grief.gram.slab")
 _contract_span = _prof.site("gp_grief.gram.contract")
 _step_span = _prof.site("gp_grief.model.step", "step", entry=True)
@@ -120,20 +122,32 @@ def _contract(vv: torch.Tensor, K: torch.Tensor, fast: bool) -> torch.Tensor:
 def make_gram_matvec(kernels: KernelLike, x: torch.Tensor, sigma2, *, chunk: int, precision: str = "highest"):
     """Row-chunked matrix-free ``vv ↦ vv (K + σ²I)`` (``vv``: ``(B, n)``).
 
-    ``x`` is zero-padded to whole ``chunk``-row blocks; each apply rebuilds
-    the ``(chunk, n)`` slab of every block and contracts it at once, so the
-    live set is one slab and the ``(B, n)`` state.  The output dtype is that
-    of ``x`` and ``vv`` (not of the hyperparameters).
+    On the slab path ``x`` is zero-padded to whole ``chunk``-row blocks;
+    each apply rebuilds the ``(chunk, n)`` slab of every block and contracts
+    it at once, so the live set is one slab and the ``(B, n)`` state.  The
+    output dtype is that of ``x`` and ``vv`` (not of the hyperparameters).
 
     Two roles, picked per call by grad mode:
 
-    * the solver operator (grad mode off, or nothing requires grad): each
-      slab built by :func:`_solver_slab` under ``torch.no_grad()``, the
-      hyperparameters read as values;
+    * the solver operator (grad mode off, or nothing requires grad), the
+      hyperparameters read as values: where
+      :func:`~gp_grief_tpu_torch.ops.cuda.gram.fused_route` holds (one
+      stationary kernel, ``x`` and ``vv`` on the card in float32 or float64,
+      ``d ≤ 8``), kernel K9 in one pass with no slab in device memory;
+      otherwise each slab built by :func:`_solver_slab` under
+      ``torch.no_grad()``.  K9's bits differ from the slab path's, and that
+      is its only departure: its distances are direct differences (the slab
+      path's take the matmul form past ``_sq_dist``'s broadcast regime), and
+      it sums in another order (the variance and ``σ² vv`` applied after
+      the sum);
     * the differentiated operator (the BBMM surrogates): each row block under
       ``torch.utils.checkpoint`` (non-reentrant), so autograd keeps each
       block's inputs only and the backward rebuilds the slab: no O(n²) is
       ever saved.
+
+    Under a profiler each apply is the span ``gp_grief.gram`` (attribute
+    ``route``: ``"fused"`` or ``"slab"``), and each apply on K9 adds 1 to the
+    counter ``gram_fused_applies``.
 
     ``precision``: ``"highest"`` (float32 slab and contraction, TF32 off on
     the card), or ``"default"``, the fast operator of the mixed16 refinement
@@ -150,6 +164,7 @@ def make_gram_matvec(kernels: KernelLike, x: torch.Tensor, sigma2, *, chunk: int
     pad = -(-n // chunk) * chunk - n
     blocks = (torch.cat([x, x.new_zeros((pad, dim))]) if pad else x).split(chunk)
     params = _kernel_params(kernels)
+    fused = fused_route(kernels, x.device.type, x.dtype, dim)
 
     def block(vv, xblk, slab=_cov_any):
         with _slab_span():
@@ -158,11 +173,15 @@ def make_gram_matvec(kernels: KernelLike, x: torch.Tensor, sigma2, *, chunk: int
             return _contract(vv, K, fast)
 
     def mv(vv: torch.Tensor) -> torch.Tensor:
-        with _gram_span(int(vv.shape[0]), n, len(blocks)):
+        sig = torch.as_tensor(sigma2, device=x.device)
+        live = torch.is_grad_enabled() and (vv.requires_grad or sig.requires_grad
+                                             or any(p.requires_grad for p in params))
+        route = "fused" if fused and not live and vv.dtype == x.dtype and vv.device == x.device else "slab"
+        with _gram_span(int(vv.shape[0]), n, len(blocks), route):
+            if route == "fused":
+                _prof.count("gram_fused_applies")
+                return gram_apply(kernels, x, vv, sig, precision)
             od = torch.promote_types(x.dtype, vv.dtype)
-            sig = torch.as_tensor(sigma2, device=x.device)
-            live = torch.is_grad_enabled() and (vv.requires_grad or sig.requires_grad
-                                                 or any(p.requires_grad for p in params))
             if live:
                 outs = [checkpoint(block, vv, xb, use_reentrant=False, preserve_rng_state=False) for xb in blocks]
             else:

@@ -51,6 +51,11 @@ _SIGNATURES = {
     # v, tables, deltas, D, out, B, M, plan (int64 array), copy bytes, device, stream
     "gp_grief_wtw_stencil_f32": [_PTR] * 3 + [_INT, _PTR, _INT, _I64, _PTR, _INT, _INT, _PTR],
     "gp_grief_wtw_stencil_f64": [_PTR] * 3 + [_INT, _PTR, _INT, _I64, _PTR, _INT, _INT, _PTR],
+    # f64, kind, D, BT, fast, device
+    "gp_grief_gram_occupancy": [_INT] * 6,
+    # xs, vt, v, var, sig, out, part, n, n_pad, B, D, kind, BT, fast, S, device, stream
+    "gp_grief_gram_apply_f32": [_PTR] * 7 + [_INT] * 9 + [_PTR],
+    "gp_grief_gram_apply_f64": [_PTR] * 7 + [_INT] * 9 + [_PTR],
 }
 
 
