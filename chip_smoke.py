@@ -746,7 +746,7 @@ def phase_uci2m_iterative(card: str, model) -> None:
             lambda: model.log_likelihood_iterative_segmented(generator=gen, **rc.UCI2M_ITERATIVE))
     dev1, items1 = device_items(prof1, top=40)
     gap1 = abs(ll_iter1 - ll_closed) / abs(ll_closed)
-    Phi, w, sigma2, U, lam = model._iter_prep
+    Phi, w, sigma2, U, lam, _ = model._iter_prep
     defect = check_whitening(U, lam, sigma2)
     _, white, _ = lowrank_sqrt_ops(U, lam, sigma2, layout="bm")
     vv = torch.randn((1 + rc.UCI2M_ITERATIVE["probe_chunk"], Phi.shape[0]), device=DEVICE,

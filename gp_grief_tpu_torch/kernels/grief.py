@@ -31,8 +31,12 @@ from gp_grief_tpu_torch.kernels.stationary import StackedKernel, Stationary
 from gp_grief_tpu_torch.ops.cuda.phi import phi_fused
 from gp_grief_tpu_torch.ops.kron import kron_eigh
 from gp_grief_tpu_torch.ops.topk import top_p_kron_eigs
+from gp_grief_tpu_torch.utils import profiling as _prof
 
 __all__ = ["GriefBasis", "build_basis", "phi", "stack_kernels"]
+
+_basis_span = _prof.site("gp_grief.grief.basis")
+_phi_span = _prof.site("gp_grief.grief.phi", "rows", "p", "route")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,17 +101,18 @@ def build_basis(
     log_total = sum(math.log(int(g.shape[0])) for g in xg)
     if log_total < math.log(2**62):
         p = min(p, math.prod(int(g.shape[0]) for g in xg))
-    stacked = stack_kernels(kernels, xg)
-    if stacked is not None:
-        g_stack = torch.stack(list(xg))  # (d, m, s)
-        Ks = stacked(g_stack)  # (d, m, m)
-        if dim_noise_var:
-            Ks = Ks + dim_noise_var * torch.eye(Ks.shape[-1], dtype=Ks.dtype, device=Ks.device)
-        lams_st, Qs_st = torch.linalg.eigh(Ks)
-        Qs, lams = tuple(Qs_st.unbind(0)), tuple(lams_st.unbind(0))
-    else:
-        Qs, lams = kron_eigh(cov_grid(kernels, xg, dim_noise_var=dim_noise_var))
-    log_lam, idx = top_p_kron_eigs(lams, p)
+    with _basis_span():
+        stacked = stack_kernels(kernels, xg)
+        if stacked is not None:
+            g_stack = torch.stack(list(xg))  # (d, m, s)
+            Ks = stacked(g_stack)  # (d, m, m)
+            if dim_noise_var:
+                Ks = Ks + dim_noise_var * torch.eye(Ks.shape[-1], dtype=Ks.dtype, device=Ks.device)
+            lams_st, Qs_st = torch.linalg.eigh(Ks)
+            Qs, lams = tuple(Qs_st.unbind(0)), tuple(lams_st.unbind(0))
+        else:
+            Qs, lams = kron_eigh(cov_grid(kernels, xg, dim_noise_var=dim_noise_var))
+        log_lam, idx = top_p_kron_eigs(lams, p)
     return GriefBasis(Qs=Qs, lams=lams, log_lam=log_lam, idx=idx)
 
 
@@ -181,16 +186,20 @@ def phi(
         raise ValueError(
             "phi(impl='batched') needs equal per-dim grids, matching per-dim kernels, and no dim grouping"
         )
-    if stacked is not None:
-        return _phi_batched(basis, stacked, xg, x)
-    Kx = cross_cov_grid(kernels, x, xg, dims)
-    if use_fused:
-        return phi_fused(*_phi_fused_operands(basis, Kx))
-    out = None
-    for d in range(len(xg)):
-        G = Kx[d] @ _selection(basis, d)
-        out = G if out is None else out * G
-    return out
+    rows = int(x.shape[0])
+    _prof.count("phi_rows", rows)
+    route = "batched" if stacked is not None else ("fused" if use_fused else "xla")
+    with _phi_span(rows, int(basis.idx.shape[0]), route):
+        if stacked is not None:
+            return _phi_batched(basis, stacked, xg, x)
+        Kx = cross_cov_grid(kernels, x, xg, dims)
+        if use_fused:
+            return phi_fused(*_phi_fused_operands(basis, Kx))
+        out = None
+        for d in range(len(xg)):
+            G = Kx[d] @ _selection(basis, d)
+            out = G if out is None else out * G
+        return out
 
 
 def _phi_batched(basis: GriefBasis, stacked: StackedKernel, xg, x: torch.Tensor) -> torch.Tensor:

@@ -43,9 +43,20 @@ from gp_grief_tpu_torch.models.base import (
     resolve_device,
 )
 from gp_grief_tpu_torch.ops.fused import fused_cg_slq
-from gp_grief_tpu_torch.ops.precond import check_whitening, lowrank_spectral_factor, lowrank_sqrt_ops
+from gp_grief_tpu_torch.ops.precond import (
+    check_whitening,
+    gram64,
+    lowrank_spectral_factor,
+    lowrank_sqrt_ops,
+    whitening_logdet,
+)
+from gp_grief_tpu_torch.utils import profiling as _prof
 
 __all__ = ["GPGriefModel", "init_grief_state"]
+
+_nlml_span = _prof.site("gp_grief.model.nlml", entry=True)
+_prep_span = _prof.site("gp_grief.grief.prep")
+_apply_span = _prof.site("gp_grief.grief.apply", "B")
 
 
 def _resolve_dtype(x, dtype) -> torch.dtype:
@@ -239,14 +250,16 @@ class GPGriefModel(BaseModel):
     # -- iterative NLML ----------------------------------------------------
 
     def _iterative_prep(self, r: int):
-        """``(Φ, w, σ², U, λ_r)`` for the iterative NLML, cached on the model
-        under ``(r, parameter values)``: Φ assembled over row chunks of
-        ``stats_chunk`` into one ``(n, p)`` tensor (K1 on the card, where it
-        applies), and with ``r > 0`` the top-r spectral factor of ``ΦWΦᵀ``
-        (``U`` orthonormal ``(n, r)``, ``λ_r`` clamped at the dtype's tiny),
-        checked to whiten (:func:`ops.precond.check_whitening`): the
-        driver's identity preconditioner is right only on a whitened
-        operator."""
+        """``(Φ, w, σ², U, λ_r, log|M|)`` for the iterative NLML, cached on
+        the model under ``(r, parameter values)``: Φ assembled over row
+        chunks of ``stats_chunk`` into one ``(n, p)`` tensor (K1 on the card,
+        where it applies), and with ``r > 0`` the top-r spectral factor of
+        ``ΦWΦᵀ`` (``U`` orthonormal ``(n, r)``, ``λ_r`` clamped at the
+        dtype's tiny), checked to whiten
+        (:func:`ops.precond.check_whitening`: the driver's identity
+        preconditioner is right only on a whitened operator), and the
+        log-det of the whitening it applies, from ``UᵀU`` in float64
+        (:func:`ops.precond.whitening_logdet`; zero for ``r = 0``)."""
         key = (r, self.parameters.tobytes())
         if getattr(self, "_iter_prep_key", None) != key:
             # Drop the old prep before building the new one: at n = 1.9M, Φ
@@ -263,6 +276,7 @@ class GPGriefModel(BaseModel):
                 w = torch.exp(self.log_w.detach())
                 sigma2 = torch.exp(self.log_noise.detach())
                 U = lam_r = None
+                logdet_M = torch.zeros((), dtype=torch.float64, device=Phi.device)
                 if r > 0:
                     # The weights= hook, not Φ·√w: CholeskyQR2 orthonormalizes
                     # Φ first, so its Cholesky sees κ(Φ)² only; baking w in
@@ -270,8 +284,10 @@ class GPGriefModel(BaseModel):
                     # measurement at uci2m).
                     U, lam_r = lowrank_spectral_factor(Phi, weights=w, top_r=r)
                     lam_r = torch.clamp_min(lam_r, torch.finfo(lam_r.dtype).tiny)
-                    check_whitening(U, lam_r, sigma2)
-            self._iter_prep = (Phi, w, sigma2, U, lam_r)
+                    G = gram64(U)
+                    check_whitening(U, lam_r, sigma2, gram=G)
+                    logdet_M = whitening_logdet(G, lam_r, sigma2, n)
+            self._iter_prep = (Phi, w, sigma2, U, lam_r, logdet_M)
             self._iter_prep_key = key
         return self._iter_prep
 
@@ -324,43 +340,54 @@ class GPGriefModel(BaseModel):
         JAX package's measurement at uci2m).  ``precond_rank = r > 0``
         deflates the top-r eigenpairs of ``ΦWΦᵀ``: CG and SLQ run on the
         whitened operator ``M^{-1/2} Ã M^{-1/2}``, never as data-space PCG,
-        and ``log|Ã| = log|M| + log|M^{-1/2} Ã M^{-1/2}|``; the factor is
-        checked to whiten (:func:`ops.precond.check_whitening`) when it is
-        built.  ``cg_iterations`` holds the CG iterations the driver
-        dispatched.
+        and ``log|Ã| = log|M| + log|M^{-1/2} Ã M^{-1/2}|``, with ``log|M|``
+        that of the whitening applied (:func:`ops.precond.whitening_logdet`);
+        the factor is checked to whiten (:func:`ops.precond.check_whitening`)
+        when it is built.  ``cg_iterations`` holds the CG iterations the
+        driver dispatched.
 
         Φ (and U) are built once and cached on the model for the current
         parameter values.  ``generator`` draws the probes (None: a generator
         seeded 0 on the model's device); chunks draw in order.  Value only.
         """
-        n = self.x.shape[0]
-        r = int(min(precond_rank, self.n_eigs))
-        Phi, w, sigma2, U, lam_r = self._iterative_prep(r)
-        if generator is None:
-            generator = torch.Generator(device=self.x.device).manual_seed(0)
+        with _nlml_span():
+            n = self.x.shape[0]
+            r = int(min(precond_rank, self.n_eigs))
+            if generator is None:
+                generator = torch.Generator(device=self.x.device).manual_seed(0)
+            with torch.no_grad(), _prep_span():
+                Phi, w, sigma2, U, lam_r, logdet_M = self._iterative_prep(r)
 
-        def mv(vv):
-            return ((vv @ Phi) * w[None, :]) @ Phi.T + sigma2 * vv
+                def mv(vv):
+                    return ((vv @ Phi) * w[None, :]) @ Phi.T + sigma2 * vv
 
-        with torch.no_grad():
-            y = self.y[None, :]
-            if r > 0:
-                _, M_inv_sqrt, logdet_M = lowrank_sqrt_ops(U, lam_r, sigma2, layout="bm")
+                y = self.y[None, :]
+                if r > 0:
+                    _, M_inv_sqrt, _ = lowrank_sqrt_ops(U, lam_r, sigma2, layout="bm")
+
+                    def white(vv):
+                        return M_inv_sqrt(mv(M_inv_sqrt(vv)))
+
+                    rhs = M_inv_sqrt(y)
+                else:
+                    white, rhs = mv, y
 
                 def op(vv):
-                    return M_inv_sqrt(mv(M_inv_sqrt(vv)))
+                    _prof.count("grief_applies")
+                    with _apply_span(int(vv.shape[0])):
+                        return white(vv)
 
-                rhs, ld_off = M_inv_sqrt(y), float(logdet_M)
-            else:
-                op, rhs, ld_off = mv, y, 0.0
-            x, ld, iters = fused_cg_slq(
-                op, rhs, generator=generator, num_probes=num_probes, lanczos_iters=lanczos_iters,
-                probe_chunk=probe_chunk, cg_tol=cg_tol, cg_iters=cg_iters, cg_segment_iters=cg_segment_iters,
-                fuse_probes=fuse_probes, verbose=verbose,
-            )
-            quad = float(torch.sum(rhs * x))
-        self.cg_iterations = iters
-        return -0.5 * (quad + ld_off + ld + n * math.log(2.0 * math.pi))
+            with torch.no_grad():
+                x, ld, iters = fused_cg_slq(
+                    op, rhs, generator=generator, num_probes=num_probes, lanczos_iters=lanczos_iters,
+                    probe_chunk=probe_chunk, cg_tol=cg_tol, cg_iters=cg_iters, cg_segment_iters=cg_segment_iters,
+                    fuse_probes=fuse_probes, verbose=verbose,
+                )
+                # The quadratic term and log|M| in one read, after the solve.
+                with _prof.host_read("model.nlml"):
+                    quad, ld_off = torch.stack([torch.sum(rhs * x).double(), logdet_M]).tolist()
+            self.cg_iterations = iters
+            return -0.5 * (quad + ld_off + ld + n * math.log(2.0 * math.pi))
 
     # -- prediction ----------------------------------------------------------
 

@@ -38,7 +38,14 @@ from gp_grief_tpu_torch.ops import lanczos as _lz
 from gp_grief_tpu_torch.ops.cuda.gram import fused_route, gram_apply
 from gp_grief_tpu_torch.ops.cg import cg_segments, cg_solve, cg_solve_refined
 from gp_grief_tpu_torch.ops.fused import fused_cg_slq
-from gp_grief_tpu_torch.ops.precond import lowrank_sqrt_ops_from_factor, pivoted_cholesky, pivoted_cholesky_matfree
+from gp_grief_tpu_torch.ops.precond import (
+    gram64,
+    lowrank_spectral_factor,
+    lowrank_sqrt_ops,
+    pivoted_cholesky,
+    pivoted_cholesky_matfree,
+    whitening_logdet,
+)
 from gp_grief_tpu_torch.ops.solve import cholesky, logdet_from_chol
 from gp_grief_tpu_torch.optimize import FitResult
 from gp_grief_tpu_torch.utils import profiling as _prof
@@ -206,15 +213,19 @@ def _whitener(kernels, x, sigma2, rank: int, K: Optional[torch.Tensor] = None, L
     """``(Lpc, M^{-1/2}, log|M|)`` of the rank-``rank`` pivoted-Cholesky
     preconditioner ``M = LLᵀ + σ²I``, built without a graph: from the dense
     Gram ``K`` when given, else from ``rank`` kernel rows; ``Lpc`` reuses a
-    factor."""
+    factor.  ``log|M|`` is that of the whitening applied
+    (:func:`~gp_grief_tpu_torch.ops.precond.whitening_logdet`), in
+    ``Lpc``'s dtype."""
     with torch.no_grad():
         if Lpc is None:
             if K is not None:
                 Lpc = pivoted_cholesky(K, rank)
             else:
                 Lpc = pivoted_cholesky_matfree(_gram_row_fn(kernels, x), cov_diag(kernels, x), rank)
-        _, M_inv_sqrt, logdet_M = lowrank_sqrt_ops_from_factor(Lpc, torch.as_tensor(sigma2).to(Lpc.dtype),
-                                                               layout="bm")
+        s2 = torch.as_tensor(sigma2).to(Lpc.dtype)
+        U, lam = lowrank_spectral_factor(Lpc)
+        _, M_inv_sqrt, _ = lowrank_sqrt_ops(U, lam, s2, layout="bm")
+        logdet_M = whitening_logdet(gram64(U), lam, s2, U.shape[0]).to(Lpc.dtype)
     return Lpc, M_inv_sqrt, logdet_M
 
 

@@ -28,12 +28,15 @@ import torch
 
 from gp_grief_tpu_torch.ops.kron_fast import kron_matvec_fast
 from gp_grief_tpu_torch.ops.solve import solve_chol, stable_cholesky
+from gp_grief_tpu_torch.utils import profiling as _prof
 
 __all__ = [
-    "check_whitening", "kron_deflation_preconditioner", "kron_deflation_sqrt_ops", "lowrank_preconditioner",
+    "check_whitening", "gram64", "kron_deflation_preconditioner", "kron_deflation_sqrt_ops", "lowrank_preconditioner",
     "lowrank_spectral_factor", "lowrank_sqrt_ops", "lowrank_sqrt_ops_from_factor", "pivoted_cholesky",
-    "pivoted_cholesky_matfree",
+    "pivoted_cholesky_matfree", "whitening_logdet",
 ]
+
+_factor_span = _prof.site("gp_grief.precond.factor", "rows", "cols", "top_r")
 
 
 def kron_deflation_preconditioner(
@@ -137,7 +140,18 @@ def lowrank_sqrt_ops(U: torch.Tensor, lam: torch.Tensor, sigma2, *, layout: str 
     return _apply(lambda s: 1.0 / s), _apply(lambda s: 1.0 / torch.sqrt(s)), logdet_M
 
 
-def check_whitening(U: torch.Tensor, lam: torch.Tensor, sigma2, *, chunk: int = 131072) -> float:
+def gram64(U: torch.Tensor, *, chunk: int = 131072) -> torch.Tensor:
+    """``UᵀU`` in float64, summed over row chunks of ``chunk``."""
+    r = U.shape[1]
+    G = torch.zeros((r, r), dtype=torch.float64, device=U.device)
+    for s in range(0, U.shape[0], chunk):
+        Uk = U[s : s + chunk].double()
+        G += Uk.T @ Uk
+    return G
+
+
+def check_whitening(U: torch.Tensor, lam: torch.Tensor, sigma2, *, chunk: int = 131072,
+                    gram: Optional[torch.Tensor] = None) -> float:
     """Raise unless :func:`lowrank_sqrt_ops`'s ``M^{-1/2}`` for ``U (n, r)``,
     ``lam`` (ascending, positive) and ``σ²`` is SPD as computed.
 
@@ -145,14 +159,12 @@ def check_whitening(U: torch.Tensor, lam: torch.Tensor, sigma2, *, chunk: int = 
     (λ_i + σ²)^{-1/2} − b < 0``, which is SPD for an orthonormal ``U``.  With
     ``UᵀU = I + E``, its least eigenvalue is at least ``c(1 + ‖E‖₂) − b‖E‖₂``,
     ``c = (λ_max + σ²)^{-1/2}``, so it stays SPD while ``‖E‖₂ < c / (b − c)``.
-    ``E`` is formed in float64 over row chunks of ``chunk``.  Returns
-    ``‖E‖₂``."""
+    ``E`` is formed in float64 (:func:`gram64` over row chunks of ``chunk``,
+    or ``gram`` where given).  Returns ``‖E‖₂``."""
     r = U.shape[1]
-    G = torch.zeros((r, r), dtype=torch.float64, device=U.device)
-    for s in range(0, U.shape[0], chunk):
-        Uk = U[s : s + chunk].double()
-        G += Uk.T @ Uk
-    defect = float(torch.linalg.matrix_norm(G - torch.eye(r, dtype=G.dtype, device=G.device), ord=2))
+    G = gram64(U, chunk=chunk) if gram is None else gram
+    with _prof.host_read("precond.check_whitening"):
+        defect = float(torch.linalg.matrix_norm(G - torch.eye(r, dtype=G.dtype, device=G.device), ord=2))
     s2 = float(sigma2)
     b, c = s2**-0.5, (float(lam[-1]) + s2) ** -0.5
     if not defect < c / (b - c):
@@ -161,6 +173,29 @@ def check_whitening(U: torch.Tensor, lam: torch.Tensor, sigma2, *, chunk: int = 
             f"M^(-1/2) stays SPD only below {c / (b - c):.3e} (lam_max {float(lam[-1]):.3e}, sigma2 {s2:.3e})"
         )
     return defect
+
+
+def whitening_logdet(gram: torch.Tensor, lam: torch.Tensor, sigma2, n: int) -> torch.Tensor:
+    """``log|M|`` (float64, on the device) of the ``M`` whose ``M^{-1/2}``
+    :func:`lowrank_sqrt_ops` applies, ``S = b·I + U diag(d) Uᵀ`` with ``b =
+    σ⁻¹`` and ``d_i = (λ_i + σ²)^{-1/2} − b``, from ``gram = UᵀU``
+    (:func:`gram64`): ``log|M| = −2 log|S| = n log σ² − 2 log det(I +
+    b⁻¹ diag(d) UᵀU)``.
+
+    For an orthonormal ``U`` it is :func:`lowrank_sqrt_ops`'s ``logdet_M``;
+    for a ``U`` that is orthonormal only to working precision it is the
+    log-det of the whitening the solver actually applies, which keeps
+    ``log|A| = log|M| + log|M^{-1/2} A M^{-1/2}|`` exact.  The difference
+    matters at scale: at n = 1.9M, r = 300 and float32 on an H100, a
+    CholeskyQR2 factor with float32 Grams has ``UᵀU`` 1.2e-4 over the
+    identity on its diagonal, and the orthonormal formula then misses
+    ``log|M|`` by 6.6-8.9 (the iterative NLML of ``models.gp_grief`` by half
+    that)."""
+    s2 = torch.as_tensor(sigma2, dtype=torch.float64, device=gram.device)
+    b = torch.rsqrt(s2)
+    d = torch.rsqrt(lam.double() + s2) - b
+    eye = torch.eye(gram.shape[0], dtype=gram.dtype, device=gram.device)
+    return n * torch.log(s2) - 2.0 * torch.linalg.slogdet(eye + (d / b)[:, None] * gram)[1]
 
 
 def lowrank_preconditioner(U: torch.Tensor, lam: torch.Tensor, sigma2) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -189,24 +224,54 @@ def lowrank_spectral_factor(F: torch.Tensor, *, weights: torch.Tensor | None = N
     needs absolute ``eps·λ₁`` accuracy; a one-shot eigh of the weighted Gram
     loses positive-definiteness in float32 (the JAX package's measurement).
     ``top_r`` keeps the ``top_r`` largest eigenpairs (the trailing columns).
+
+    The top-``top_r`` pairs of a float32 ``F`` come from the p × p problem
+    in float64 instead: ``G = FᵀF`` summed in float64 over row chunks
+    (:func:`gram64`), ``W^½ G W^½ = V S Vᵀ``, ``U = F·(W^½ V S^{-½})``.  A
+    float32 product sums each entry's n terms in one running sum: at n =
+    1.9M, p = 400 on an H100 (GP-GRIEF's Φ, the one caller that truncates)
+    CholeskyQR2's ``U`` came out with ``UᵀU`` 1.2e-4 over the identity on
+    its diagonal, which bent the whitened operator's deflated directions by
+    percents, and this route's within 1.2e-7 of it, in 32 ms against 142.
+    Its ``U`` is orthonormal only as far as ``F`` is well conditioned (its
+    error grows as ``eps₃₂·κ(F)``: 8e-5 at κ(F) = 1e4 and n = 100k on a CPU, where CholeskyQR2's
+    is 2e-6), so the full factors (``top_r`` None: pivoted Cholesky, SKI's
+    deflation basis), whose columns can span such ranges, keep CholeskyQR2,
+    as float64 does; a zero eigenvalue gives a zero column.
     """
-    Ut = F
-    Ls = []
-    for _ in range(2):
-        L, _ = stable_cholesky(Ut.T @ Ut)
-        Ut = torch.linalg.solve_triangular(L.T, Ut, upper=True, left=False)  # Ut ← Ut·L⁻ᵀ
-        Ls.append(L)
-    # F = Ut·(L2ᵀL1ᵀ)  ⇒  F W Fᵀ = Ut (L2ᵀL1ᵀ W L1L2) Utᵀ.
-    mid = Ls[1].T @ Ls[0].T
-    if weights is not None:
-        mid = mid * torch.sqrt(weights)[None, :]
-    s, V = torch.linalg.eigh(mid @ mid.T)
+    with _factor_span(int(F.shape[0]), int(F.shape[1]), -1 if top_r is None else int(top_r)):
+        if top_r is not None and F.dtype == torch.float32:
+            return _spectral_factor64(F, weights, top_r)
+        Ut = F
+        Ls = []
+        for _ in range(2):
+            L, _ = stable_cholesky(Ut.T @ Ut)
+            Ut = torch.linalg.solve_triangular(L.T, Ut, upper=True, left=False)  # Ut ← Ut·L⁻ᵀ
+            Ls.append(L)
+        # F = Ut·(L2ᵀL1ᵀ)  ⇒  F W Fᵀ = Ut (L2ᵀL1ᵀ W L1L2) Utᵀ.
+        mid = Ls[1].T @ Ls[0].T
+        if weights is not None:
+            mid = mid * torch.sqrt(weights)[None, :]
+        s, V = torch.linalg.eigh(mid @ mid.T)
+        lam = torch.clamp_min(s, 0.0)
+        if top_r is not None:
+            r = max(0, int(min(top_r, lam.shape[0])))
+            k = lam.shape[0] - r
+            V, lam = V[:, k:], lam[k:]
+        return Ut @ V, lam
+
+
+def _spectral_factor64(F: torch.Tensor, weights, top_r):
+    """:func:`lowrank_spectral_factor` from the p × p problem in float64;
+    an eigenvalue at or under zero gives a zero column."""
+    sw = torch.ones(F.shape[1], dtype=torch.float64, device=F.device) if weights is None else torch.sqrt(
+        weights.double())
+    s, V = torch.linalg.eigh(sw[:, None] * gram64(F) * sw[None, :])
+    k = s.shape[0] - max(0, int(min(top_r, s.shape[0])))
+    s, V = s[k:], V[:, k:]
     lam = torch.clamp_min(s, 0.0)
-    if top_r is not None:
-        r = max(0, int(min(top_r, lam.shape[0])))
-        k = lam.shape[0] - r
-        V, lam = V[:, k:], lam[k:]
-    return Ut @ V, lam
+    inv = torch.where(lam > 0, torch.rsqrt(torch.where(lam > 0, lam, torch.ones_like(lam))), torch.zeros_like(lam))
+    return F @ (sw[:, None] * V * inv[None, :]).to(F.dtype), lam.to(F.dtype)
 
 
 def lowrank_sqrt_ops_from_factor(F: torch.Tensor, sigma2, *, weights: torch.Tensor | None = None,

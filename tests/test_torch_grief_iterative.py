@@ -205,3 +205,72 @@ def test_check_whitening_catches_a_factor_that_does_not_whiten():
     U[:, 0] *= 1.001  # ‖UᵀU − I‖ = 2e-3, above the bound c/(b − c) ≈ 1e-3
     with pytest.raises(RuntimeError, match="not orthonormal enough"):
         check_whitening(torch.as_tensor(U), lam, sigma2)
+
+
+@pytest.mark.parametrize("orthonormal", [True, False])
+def test_whitening_logdet_is_the_applied_whitenings(orthonormal):
+    """``whitening_logdet`` is ``−2 log|S|`` of the ``S = M^{-1/2}`` that
+    ``lowrank_sqrt_ops`` applies, formed densely here; for an orthonormal
+    ``U`` it is ``lowrank_sqrt_ops``'s own ``logdet_M``."""
+    from gp_grief_tpu_torch.ops.precond import gram64, lowrank_sqrt_ops, whitening_logdet
+
+    rng = np.random.default_rng(5)
+    n, r, sigma2 = 80, 6, 0.2
+    U, _ = np.linalg.qr(rng.standard_normal((n, r)))
+    if not orthonormal:
+        U = U * (1.0 + 1e-3 * rng.standard_normal(r))[None, :]
+    U, lam = torch.as_tensor(U), torch.as_tensor(np.geomspace(1.0, 1e4, r))
+    _, M_isqrt, ld = lowrank_sqrt_ops(U, lam, sigma2)
+    S = M_isqrt(torch.eye(n, dtype=torch.float64))
+    got = float(whitening_logdet(gram64(U), lam, sigma2, n))
+    assert got == pytest.approx(-2.0 * float(torch.linalg.slogdet(S)[1]), rel=1e-12)
+    if orthonormal:
+        assert got == pytest.approx(float(ld), rel=1e-12)
+    else:
+        assert abs(got - float(ld)) > 1e-3
+
+
+def test_spectral_factor_past_the_gram_rows():
+    """The top-r pairs of a float32 factor, here of 131,572 rows, come from
+    the float64 p × p problem: ``U`` orthonormal to float32's resolution,
+    the top eigenvalues of ``F W Fᵀ``, and the same ones as CholeskyQR2's
+    (float64's) route."""
+    from gp_grief_tpu_torch.ops import precond
+
+    rng = np.random.default_rng(6)
+    n, p, r = 131_572, 12, 8
+    F = torch.as_tensor(rng.standard_normal((n, p)) * np.geomspace(1.0, 30.0, p), dtype=torch.float32)
+    w = torch.as_tensor(np.geomspace(1.0, 0.1, p), dtype=torch.float32)
+    U, lam = precond.lowrank_spectral_factor(F, weights=w, top_r=r)
+    assert U.shape == (n, r) and U.dtype == torch.float32
+    G = precond.gram64(U)
+    assert float(torch.linalg.matrix_norm(G - torch.eye(r, dtype=G.dtype), ord=2)) < 1e-5
+    Fw = F.double() * w.double().sqrt()
+    top = torch.linalg.eigvalsh(Fw.T @ Fw)[-r:]
+    assert torch.allclose(lam.double(), top, rtol=1e-5)
+    # U spans the top eigenvectors: U diag(lam) Uᵀ U = F W Fᵀ U.
+    Ud = U.double()
+    assert torch.allclose(Ud * lam.double(), Fw @ (Fw.T @ Ud), rtol=0, atol=1e-4 * float(lam.max()))
+    _, lam_cqr = precond.lowrank_spectral_factor(F.double(), weights=w.double(), top_r=r)
+    assert torch.allclose(lam.double(), lam_cqr, rtol=1e-5)
+
+
+def test_full_factors_keep_cholesky_qr2():
+    """A full factor (no ``top_r``) keeps CholeskyQR2, whose ``U`` stays
+    orthonormal on an ill-conditioned float32 factor (κ(F) = 1e4), where
+    the float64 p × p route's does not."""
+    from gp_grief_tpu_torch.ops import precond
+
+    rng = np.random.default_rng(7)
+    n, p = 20_000, 32
+    Q, _ = np.linalg.qr(rng.standard_normal((n, p)))
+    R, _ = np.linalg.qr(rng.standard_normal((p, p)))
+    F = torch.as_tensor((Q * np.geomspace(1.0, 1e-4, p)) @ R, dtype=torch.float32)
+
+    def defect(U):
+        G = precond.gram64(U)
+        return float(torch.linalg.matrix_norm(G - torch.eye(p, dtype=G.dtype), ord=2))
+
+    U, _ = precond.lowrank_spectral_factor(F)
+    U64, _ = precond._spectral_factor64(F, None, p)
+    assert defect(U) < 1e-5 < defect(U64)

@@ -39,6 +39,31 @@ def _exact():
                             dtype=torch.float32, device="cpu")
 
 
+def _grief():
+    """A GP-GRIEF model whose kernels changed after it was built, so that its
+    first iterative NLML rebuilds the basis and the cached statistics."""
+    rng = np.random.default_rng(5)
+    n, d = 1200, 3
+    x = rng.uniform(-1, 1, (n, d)).astype(np.float32)
+    y = (np.sin(2 * x[:, 0]) * np.cos(x[:, 1]) + 0.1 * rng.standard_normal(n)).astype(np.float32)
+    grid = gpt.InducingGrid.build(x, mbar=6)
+    m = gpt.GPGriefModel(x, y, [gpt.make_kernel("rbf", lengthscale=ls) for ls in (1.0, 0.9, 1.2)], grid,
+                         n_eigs=30, noise_var=0.2, dtype=torch.float32, device="cpu")
+    m.stats_chunk = 500
+    with torch.no_grad():
+        m.kernels[0].log_lengthscale.add_(0.1)
+    return m
+
+
+# Two probe chunks of 5 fused steps leave CG to its segments.
+GRIEF_ITER = dict(num_probes=4, lanczos_iters=5, cg_tol=1e-6, cg_iters=100, precond_rank=12, cg_segment_iters=10,
+                  probe_chunk=2)
+
+
+def _grief_nlml(m):
+    return m.log_likelihood_iterative_segmented(generator=torch.Generator().manual_seed(3), **GRIEF_ITER)
+
+
 XS = np.random.default_rng(2).uniform(0.05, 0.95, (16, 3)).astype(np.float32)
 
 
@@ -54,7 +79,7 @@ def _train(m):
     return m.optimize_segmented(max_iters=2, cg_segment_iters=8, probe_grad_chunk=2).losses
 
 
-WORK = {"nlml": (_ski, _nlml), "predict": (_ski, _predict), "train": (_exact, _train)}
+WORK = {"nlml": (_ski, _nlml), "predict": (_ski, _predict), "train": (_exact, _train), "grief": (_grief, _grief_nlml)}
 
 
 def _recorded(fn, model, **kw):
@@ -112,6 +137,12 @@ def test_spans_are_host_events_at_function_scope(work):
     ("train", ("gp_grief.model.step", "gp_grief.model.step.solve", "gp_grief.cg.segment", "gp_grief.gram",
                "gp_grief.gram.slab")),
     ("train", ("gp_grief.model.step", "gp_grief.model.step.grad", "gp_grief.gram.contract")),
+    ("grief", ("gp_grief.model.nlml", "gp_grief.grief.prep", "gp_grief.grief.basis")),
+    ("grief", ("gp_grief.model.nlml", "gp_grief.grief.prep", "gp_grief.grief.phi")),
+    ("grief", ("gp_grief.model.nlml", "gp_grief.grief.prep", "gp_grief.precond.factor")),
+    ("grief", ("gp_grief.model.nlml", "gp_grief.grief.prep", "gp_grief.host_read")),
+    ("grief", ("gp_grief.model.nlml", "gp_grief.slq.chunk", "gp_grief.grief.apply")),
+    ("grief", ("gp_grief.model.nlml", "gp_grief.cg.segment", "gp_grief.grief.apply")),
 ])
 def test_spans_nest_by_layer(work, chain):
     """Each span of ``chain`` lies inside one of the span before it."""
@@ -201,3 +232,39 @@ def test_self_time_leaves_out_the_children():
     assert outer["self_s"] == pytest.approx(outer["host_s"] - inner["host_s"], abs=1e-9)
     profiling.reset()
     assert profiling.snapshot() == {"spans": {}, "counters": {}}
+
+
+def test_grief_counters_are_the_work_done(monkeypatch):
+    """GP-GRIEF's iterative NLML: ``grief_applies`` is the solver's applies
+    of the whitened operator, each one ``gp_grief.grief.apply`` span;
+    ``phi_rows`` the rows of Φ assembled (the refreshed statistics' and the
+    NLML's Φ, a span per chunk); the whitening check's read and the NLML's
+    are host reads; and nothing is recorded without a profiler."""
+    from gp_grief_tpu_torch.models import gp_grief
+
+    applies = []
+    solve = gp_grief.fused_cg_slq
+
+    def counted(op, *a, **kw):
+        return solve(lambda v: applies.append(int(v.shape[0])) or op(v), *a, **kw)
+
+    monkeypatch.setattr(gp_grief, "fused_cg_slq", counted)
+    profiling.reset()
+    _grief_nlml(_grief())
+    assert profiling.snapshot() == {"spans": {}, "counters": {}} and applies
+    m = _grief()
+    applies.clear()
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        _grief_nlml(m)
+    snap = profiling.snapshot()
+    n, chunks = m.x.shape[0], -(-m.x.shape[0] // m.stats_chunk)
+    assert snap["counters"]["grief_applies"] == len(applies) == snap["spans"]["gp_grief.grief.apply"]["calls"]
+    assert sorted({e.kwinputs["B"] for e in _events(prof, "gp_grief.grief.apply")}) == sorted(set(applies))
+    assert snap["counters"]["phi_rows"] == 2 * n and snap["spans"]["gp_grief.grief.phi"]["calls"] == 2 * chunks
+    assert snap["counters"]["cg_iterations"] == m.cg_iterations
+    for name in ("gp_grief.model.nlml", "gp_grief.grief.prep", "gp_grief.grief.basis", "gp_grief.precond.factor"):
+        assert snap["spans"][name]["calls"] == 1, name
+    sites = [e.kwinputs["site"] for e in _events(prof, "gp_grief.host_read")]
+    assert {"precond.check_whitening", "model.nlml"} <= set(sites)
+    assert snap["counters"]["host_reads"] == sum(2 if s in ("fused.chunk", "fused.segment") else 1 for s in sites)
