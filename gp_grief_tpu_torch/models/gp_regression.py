@@ -11,8 +11,10 @@ which never holds an ``(n, n)`` buffer, so n is bounded by compute (n = 500k
 fits one card).  ``precond_rank > 0`` whitens CG and SLQ with a partial
 pivoted Cholesky factor (``ops.precond.pivoted_cholesky_matfree``).  On the
 card the solver's applies of one stationary kernel run on kernel K9
-(``ops.cuda.gram``); the differentiated applies, and every apply on the CPU,
-rebuild ``(chunk, n)`` Gram slabs by PyTorch ops and contract them.
+(``ops.cuda.gram``), and their differentiated applies on K9 with kernel
+K10's hyperparameter cotangents in the backward; every other apply, and
+every apply on the CPU, rebuilds ``(chunk, n)`` Gram slabs by PyTorch ops
+and contracts them.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from gp_grief_tpu_torch.kernels.stationary import Stationary, _from_r2, _use_bro
 from gp_grief_tpu_torch.models.base import BaseModel, check_xy, resolve_device
 from gp_grief_tpu_torch.models.gp_grief import _resolve_dtype, _to_tensor
 from gp_grief_tpu_torch.ops import lanczos as _lz
-from gp_grief_tpu_torch.ops.cuda.gram import fused_route, gram_apply
+from gp_grief_tpu_torch.ops.cuda.gram import GramApply, fused_route, gram_apply
 from gp_grief_tpu_torch.ops.cg import cg_segments, cg_solve, cg_solve_refined
 from gp_grief_tpu_torch.ops.fused import fused_cg_slq
 from gp_grief_tpu_torch.ops.precond import (
@@ -147,14 +149,22 @@ def make_gram_matvec(kernels: KernelLike, x: torch.Tensor, sigma2, *, chunk: int
       path's take the matmul form past ``_sq_dist``'s broadcast regime), and
       it sums in another order (the variance and ``σ² vv`` applied after
       the sum);
-    * the differentiated operator (the BBMM surrogates): each row block under
+    * the differentiated operator (the BBMM surrogates): where the same
+      predicate holds, at ``"highest"``, with ``x`` needing no gradient,
+      :class:`~gp_grief_tpu_torch.ops.cuda.gram.GramApply`: K9's forward
+      and, in the backward, kernel K10's one pass for the lengthscales' and
+      the variance's cotangents (``vv``'s, where it needs one, from one more
+      K9 call), ``+ σ² vv`` left to autograd, which gives ``σ²`` its
+      cotangent; otherwise each row block under
       ``torch.utils.checkpoint`` (non-reentrant), so autograd keeps each
-      block's inputs only and the backward rebuilds the slab: no O(n²) is
-      ever saved.
+      block's inputs only and the backward rebuilds the slab.  Neither saves
+      an O(n²) buffer.
 
     Under a profiler each apply is the span ``gp_grief.gram`` (attribute
-    ``route``: ``"fused"`` or ``"slab"``), and each apply on K9 adds 1 to the
-    counter ``gram_fused_applies``.
+    ``route``: ``"fused"``, ``"fused_grad"`` or ``"slab"``), each solver
+    apply on K9 adds 1 to the counter ``gram_fused_applies``, and each
+    backward on K10 is the span ``gp_grief.gram.grad`` and adds 1 to
+    ``gram_fused_grads``.
 
     ``precision``: ``"highest"`` (float32 slab and contraction, TF32 off on
     the card), or ``"default"``, the fast operator of the mixed16 refinement
@@ -183,11 +193,19 @@ def make_gram_matvec(kernels: KernelLike, x: torch.Tensor, sigma2, *, chunk: int
         sig = torch.as_tensor(sigma2, device=x.device)
         live = torch.is_grad_enabled() and (vv.requires_grad or sig.requires_grad
                                              or any(p.requires_grad for p in params))
-        route = "fused" if fused and not live and vv.dtype == x.dtype and vv.device == x.device else "slab"
+        route = "slab"
+        if fused and vv.dtype == x.dtype and vv.device == x.device:
+            if not live:
+                route = "fused"
+            elif precision == "highest" and not x.requires_grad:
+                route = "fused_grad"
         with _gram_span(int(vv.shape[0]), n, len(blocks), route):
             if route == "fused":
                 _prof.count("gram_fused_applies")
                 return gram_apply(kernels, x, vv, sig, precision)
+            if route == "fused_grad":
+                ls = torch.broadcast_to(kernels.lengthscale, (dim,))
+                return GramApply.apply(kernels.kind, x, vv, ls, kernels.variance) + sig.to(x.dtype) * vv
             od = torch.promote_types(x.dtype, vv.dtype)
             if live:
                 outs = [checkpoint(block, vv, xb, use_reentrant=False, preserve_rng_state=False) for xb in blocks]
@@ -535,8 +553,10 @@ class GPRegression(BaseModel):
            pivoted-Cholesky factor rebuilt at the step's hyperparameters when
            ``precond_rank > 0``;
         2. the BBMM surrogate gradient in pieces, each a forward and a
-           checkpointed backward sweep: the quadratic piece ``−αᵀ(∂Ã)α`` and
-           the Hutchinson pieces ``Σ s_rᵀ(∂Ã)z_r / R`` in ``probe_grad_chunk``
+           backward through the differentiated operator of
+           :func:`make_gram_matvec` (K9 and K10 on the card, checkpointed
+           slabs elsewhere): the quadratic piece ``−αᵀ(∂Ã)α`` and the
+           Hutchinson pieces ``Σ s_rᵀ(∂Ã)z_r / R`` in ``probe_grad_chunk``
            chunks;
         3. a ``torch.optim.Adam`` update (ε = 1e-8, as ``fit``'s).
 

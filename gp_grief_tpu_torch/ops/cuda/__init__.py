@@ -18,9 +18,12 @@ first use (``_build.py``) and bound with ctypes.
 * K9 :func:`gram_apply` — the matrix-free Gram apply of the exact GP, one
   pass with no slab in device memory (``csrc/gram_apply.cu``; replaces no
   TPU kernel: the JAX package leaves the apply to XLA).
+* K10 :func:`gram_grad` — the hyperparameter cotangents of that apply, one
+  pass with no slab in device memory (``csrc/gram_grad.cu``; replaces no
+  TPU kernel: the JAX package leaves the gradient to XLA's autodiff).
 """
 
-from gp_grief_tpu_torch.ops.cuda.gram import gram_apply
+from gp_grief_tpu_torch.ops.cuda.gram import gram_apply, gram_grad
 from gp_grief_tpu_torch.ops.cuda.interp import interp_wt
 from gp_grief_tpu_torch.ops.cuda.kron import (
     fused_schedule_applicable,
@@ -46,5 +49,5 @@ __all__ = [
     "phi_fused", "phi_fused_ref", "kron_chain_ref", "kron_matvec_slab", "kron_matvec_fused",
     "slab_schedule_applicable", "fused_schedule_applicable", "kron_matmat_cuda", "kron_matvec_cuda",
     "last_slab_pass", "last_slab_pass_ref", "tail3_pass", "tail3_pass_ref", "tail2_pass", "tail2_pass_ref",
-    "interp_wt", "wtw_stencil", "gram_apply",
+    "interp_wt", "wtw_stencil", "gram_apply", "gram_grad",
 ]

@@ -56,6 +56,11 @@ _SIGNATURES = {
     # xs, vt, v, var, sig, out, part, n, n_pad, B, D, kind, BT, fast, S, device, stream
     "gp_grief_gram_apply_f32": [_PTR] * 7 + [_INT] * 9 + [_PTR],
     "gp_grief_gram_apply_f64": [_PTR] * 7 + [_INT] * 9 + [_PTR],
+    # f64, kind, D, BT, device
+    "gp_grief_gram_grad_occupancy": [_INT] * 5,
+    # xs, gt, vt, part, out, n_pad, B, D, kind, BT, S, device, stream
+    "gp_grief_gram_grad_f32": [_PTR] * 5 + [_INT] * 7 + [_PTR],
+    "gp_grief_gram_grad_f64": [_PTR] * 5 + [_INT] * 7 + [_PTR],
 }
 
 

@@ -1,6 +1,7 @@
-"""Kernel K9 (``ops.cuda.gram.gram_apply``) on the card: the matrix-free Gram
-apply in one pass, against a float64 apply of the same inputs and against
-the slab path it replaces in the solver role.
+"""Kernels K9 (``ops.cuda.gram.gram_apply``) and K10 (``gram_grad``) on the
+card: the matrix-free Gram apply in one pass and its hyperparameter
+cotangents, each against float64 on the same inputs and against the slab
+path it replaces.
 
 Marked ``cuda``; without a CUDA device every test skips.  On a GPU machine
 without jax run ``python -m pytest --noconftest tests/test_torch_gram_cuda.py``
@@ -11,7 +12,10 @@ Errors are normwise per output: ``|y − y64|`` over ``Σ_j |k_ij| |v_bj| +
 is positive), ``y64`` the float64 apply of the same inputs.  K9 is held no
 further off than the slab path, with room for the two paths' different
 summation orders: ``1.5 × slab + 2 eps`` (at ``"default"`` the bf16
-rounding of the same operands sets both errors).
+rounding of the same operands sets both errors).  K10's cotangents are held
+the same way: ``|c − c64|`` over the same sums of ``|G|`` and ``|vv|``
+(every term then non-negative), ``c64`` the float64 slab path's gradient at
+the same inputs and hyperparameter values.
 """
 
 import pytest
@@ -92,6 +96,75 @@ def test_noise_term_folded_in(cuda):
     assert torch.all((with_noise - without - sig * V).abs() <= 4 * eps * (with_noise.abs() + without.abs()))
 
 
+def _leaf_cotangents(k, x, G, V):
+    """``(∂L/∂var, ∂L/∂ℓ)`` of ``L = Σ G ⊙ mv(V)`` by autograd through
+    ``make_gram_matvec``'s current route, from the kernel's log leaves."""
+    kk = gpt.make_kernel(k.kind, lengthscale=1.0, variance=1.0, input_dim=x.shape[1], dtype=x.dtype,
+                         device=x.device)
+    with torch.no_grad():
+        kk.log_lengthscale.copy_(torch.broadcast_to(k.log_lengthscale.detach(), (x.shape[1],)))
+        kk.log_variance.copy_(k.log_variance.detach())
+    L = torch.sum(G * tgr.make_gram_matvec(kk, x, 0.0, chunk=512)(V))
+    g_ls, g_var = torch.autograd.grad(L, [kk.log_lengthscale, kk.log_variance])
+    return (g_var.double() / kk.variance.detach().double(), g_ls.double() / kk.lengthscale.detach().double())
+
+
+def _float64_cotangents(k, x, G, V):
+    """The float64 slab path's ``(∂L/∂var, ∂L/∂ℓ)`` of the same (rounded)
+    inputs and values, and the same sums of ``|G|`` and ``|vv|``."""
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(tgr, "fused_route", lambda *a: False)
+        k64 = gpt.make_kernel(k.kind, lengthscale=1.0, variance=1.0, input_dim=x.shape[1], dtype=torch.float64,
+                              device=x.device)
+        with torch.no_grad():
+            k64.log_lengthscale.copy_(torch.broadcast_to(k.log_lengthscale.detach().double(), (x.shape[1],)))
+            k64.log_variance.copy_(k.log_variance.detach().double())
+        want = _leaf_cotangents(k64, x.double(), G.double(), V.double())
+    scale = gram.gram_grad_ref(k.kind, x.double(), G.double().abs(), V.double().abs(), k64.lengthscale.detach(),
+                               k64.variance.detach())
+    return want, scale
+
+
+def _grad_error(got, want, scale):
+    return max(float((got[0].double() - want[0]).abs() / scale[0]),
+               float(((got[1].double() - want[1]).abs() / scale[1]).max()))
+
+
+def _cotangent_operands(device, kind, d, B, dtype, ard, n=N):
+    k, x, G, _ = _case(device, kind, d, B, dtype, ard, n=n)
+    V = torch.randn((B, n), generator=torch.Generator().manual_seed(B + 3 * d), dtype=torch.float64).to(device, dtype)
+    ls = torch.broadcast_to(k.lengthscale.detach(), (d,))
+    return k, x, G, V, ls, k.variance.detach()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("B", [1, 4, 9, 17])
+@pytest.mark.parametrize("d", [1, 2, 3, 8])
+@pytest.mark.parametrize("kind", KINDS)
+def test_fused_grad_is_no_further_off_than_the_slab_path(cuda, monkeypatch, kind, d, B, dtype):
+    k, x, G, V, ls, var = _cotangent_operands(cuda, kind, d, B, dtype, ard=(d + B) % 2 == 0)
+    got = gram.gram_grad(kind, x, G, V, ls, var)
+    assert got[0].dtype == got[1].dtype == dtype and got[1].shape == (d,)
+    plain = gram.gram_grad_ref(kind, x, G, V, ls, var)
+    with monkeypatch.context() as m:
+        m.setattr(tgr, "fused_route", lambda *a: False)
+        slab = _leaf_cotangents(k, x, G, V)
+    want, scale = _float64_cotangents(k, x, G, V)
+    e_fused, e_plain, e_slab = (_grad_error(c, want, scale) for c in (got, plain, slab))
+    eps = torch.finfo(dtype).eps
+    assert e_fused <= 1.5 * e_slab + 2 * eps, (e_fused, e_slab)
+    assert e_fused <= 1.5 * e_plain + 2 * eps, (e_fused, e_plain)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_fused_grad_same_bits_on_every_call(cuda, dtype):
+    k, x, G, V, ls, var = _cotangent_operands(cuda, "matern32", 2, 4, dtype, ard=True, n=20_000)
+    a = gram.gram_grad("matern32", x, G, V, ls, var)
+    for _ in range(3):
+        b = gram.gram_grad("matern32", x, G, V, ls, var)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
 def test_make_gram_matvec_routes_the_solver_role(cuda):
     k, x, V, sig = _case(cuda, "rbf", 2, 9, torch.float32, ard=True)
     mv = tgr.make_gram_matvec(k, x, sig, chunk=512)
@@ -100,13 +173,15 @@ def test_make_gram_matvec_routes_the_solver_role(cuda):
         out = mv(V)
     assert gram.gram_apply.launches == before + 1
     assert torch.equal(out, gram.gram_apply(k, x, V, sig))
-    mv(V).sum().backward()  # the differentiated role keeps the slab path
-    assert gram.gram_apply.launches == before + 2
+    grads = gram.gram_grad.launches
+    mv(V).sum().backward()  # the differentiated role: K9's forward, then K10
+    assert gram.gram_apply.launches == before + 3 and gram.gram_grad.launches == grads + 1
 
 
 def test_a_training_step_on_each_route_agrees(cuda, monkeypatch):
-    """One ``optimize_segmented`` step at n = 8,192 on each route: the loss
-    and the gradient within the benchmark's gp40k limits of each other
+    """One ``optimize_segmented`` step at n = 8,192 on each route (K9 and
+    K10, three K10 calls: the quadratic piece and two probe chunks; the slab
+    path): the loss and the gradient within the benchmark's gp40k limits of each other
     (loss 5e-5 relative, each leaf's gradient 3e-3 of the larger of its
     norm and the median leaf's)."""
     g = torch.Generator().manual_seed(3)
@@ -122,9 +197,9 @@ def test_a_training_step_on_each_route_agrees(cuda, monkeypatch):
         r = m.optimize_segmented(max_iters=1, learning_rate=0.05, cg_segment_iters=8, probe_grad_chunk=4)
         return float(r.losses[0]), [p.grad.double().norm() for _, p in m._leaves()]
 
-    before = gram.gram_apply.launches
+    before, grads = gram.gram_apply.launches, gram.gram_grad.launches
     loss_f, g_f = step()
-    assert gram.gram_apply.launches > before
+    assert gram.gram_apply.launches > before and gram.gram_grad.launches == grads + 3
     with monkeypatch.context() as m:
         m.setattr(tgr, "fused_route", lambda *a: False)
         loss_s, g_s = step()

@@ -102,7 +102,7 @@ def test_gram_apply_checks_its_operands():
 
 def _applies(mv, V, k):
     """Under a profiler: a solver apply, a bf16 apply and a differentiated
-    apply; the counter and the ``gp_grief.gram`` calls after."""
+    apply; the counters and the ``gp_grief.gram`` calls after."""
     profiling.reset()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         with torch.no_grad():
@@ -111,26 +111,28 @@ def _applies(mv, V, k):
         k.log_variance.requires_grad_(True)
         mv(V).sum().backward()
     snap = profiling.snapshot()
-    return out, snap["counters"].get("gram_fused_applies", 0), snap["spans"]["gp_grief.gram"]["calls"]
+    return out, snap["counters"], snap["spans"]["gp_grief.gram"]["calls"]
 
 
 def test_the_slab_path_counts_no_fused_apply():
     x, V = _data()
     k = _kern()
-    _, fused, calls = _applies(tgr.make_gram_matvec(k, x, 0.3, chunk=128), V, k)
-    assert fused == 0 and calls == 3
+    _, counters, calls = _applies(tgr.make_gram_matvec(k, x, 0.3, chunk=128), V, k)
+    assert counters.get("gram_fused_applies", 0) == 0 and counters.get("gram_fused_grads", 0) == 0 and calls == 3
 
 
 def test_the_fused_branch_takes_the_solver_role_alone(monkeypatch):
-    """With the predicate forced true: the solver apply (and only it) goes
-    to ``gram_apply`` and counts once; bf16 state and the differentiated
-    apply keep the slab path."""
+    """With the predicate forced true: the solver apply goes to
+    ``gram_apply`` and is the one apply counted in ``gram_fused_applies``;
+    the differentiated apply takes ``GramApply`` (K9's forward, one K10 call
+    counted in ``gram_fused_grads`` in its backward); bf16 state keeps the
+    slab path."""
     x, V = _data()
     k = _kern()
     sig = torch.tensor(0.3, dtype=torch.float64)
     with torch.no_grad():
         slab = tgr.make_gram_matvec(k, x, sig, chunk=128)(V)
     monkeypatch.setattr(tgr, "fused_route", lambda *a: True)
-    out, fused, calls = _applies(tgr.make_gram_matvec(k, x, sig, chunk=128), V, k)
-    assert fused == 1 and calls == 3
+    out, counters, calls = _applies(tgr.make_gram_matvec(k, x, sig, chunk=128), V, k)
+    assert counters["gram_fused_applies"] == 1 and counters["gram_fused_grads"] == 1 and calls == 3
     assert float((out - slab).abs().max()) <= 1e-12 * float(slab.abs().max())
